@@ -24,9 +24,7 @@ import numpy as np
 sys.path.insert(0, ".")
 import gym_po_tpu as gpt  # noqa: E402
 from gym_po_tpu.utils import enable_compilation_cache  # noqa: E402
-from gym_po_tpu.utils.platform import pin_platform_from_env  # noqa: E402
 
-pin_platform_from_env()
 enable_compilation_cache()
 from gym_po_tpu.agents import (  # noqa: E402
     PPOConfig,

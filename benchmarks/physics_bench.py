@@ -1,4 +1,4 @@
-"""Micro-benchmark of the TPU rigid-body ant engine (physics.engine.step).
+"""Micro-benchmark of the rigid-body ant engine (physics.engine.step).
 
 Measures env-steps/s (one env step = frame_skip integrator substeps) for a
 batch of independent ants under vmap+jit, using the repo timing rules
@@ -22,9 +22,8 @@ import numpy as np
 sys.path.insert(0, ".")  # repo root
 from gym_po_tpu.physics import make_ant_model, TAG_WALLS
 from gym_po_tpu.physics.engine import PhysicsState, step
-from gym_po_tpu.utils import enable_compilation_cache, pin_platform_from_env
+from gym_po_tpu.utils import enable_compilation_cache
 
-pin_platform_from_env()
 enable_compilation_cache()
 
 STAND = np.array(

@@ -1,21 +1,12 @@
-"""MFU / roofline accounting for the hot paths (VERDICT r4 #6).
+"""MFU / roofline accounting for the ant engine.
 
 Counts the FLOPs each program ACTUALLY executes — via the trip-count-aware
 jaxpr walker in ``gym_po_tpu.utils.flops`` (XLA's own cost_analysis counts
 loop bodies once and under-counts the engine ~200x) — then measures
-steps/s on the attached device and reports achieved FLOP/s against the
-chip's ceilings, naming the binding resource.
-
-v5e (v5 lite) per-chip ceilings used (stated so the numbers are
-reproducible; MXU/HBM are published, VPU/VMEM are architectural estimates):
-
-* MXU: 197 TFLOP/s bf16 (f32 ~1/4 of that) — irrelevant here: the ant
-  engine's scalar pipeline issues NO matmuls by design.
-* VPU: 8×128 lanes × 4 ALUs × ~1.5 GHz ≈ 6.1 T f32 op/s (12.3 T with
-  every op an FMA — our op mix is not FMA-dominated, so 6.1 T is the
-  honest ceiling).
-* VMEM: ~16 MB/core (pallas guide), read+write BW ~O(20) TB/s.
-* HBM: 819 GB/s.
+env-steps/s on the attached device and reports achieved FLOP/s against the
+device's published peak (:data:`PEAKS`, keyed by ``device_kind``).  The
+engine issues f32 elementwise work, so the bound is the f32 rate outside
+the tensor cores; a device missing from the table is an error.
 
     python benchmarks/roofline.py [--batch 4096] [--steps 4]
 """
@@ -36,12 +27,13 @@ from gym_po_tpu.physics import TAG_WALLS, make_ant_model  # noqa: E402
 from gym_po_tpu.physics.engine import PhysicsState, step  # noqa: E402
 from gym_po_tpu.utils import enable_compilation_cache  # noqa: E402
 from gym_po_tpu.utils.flops import flops_of  # noqa: E402
-from gym_po_tpu.utils.platform import pin_platform_from_env  # noqa: E402
 
-pin_platform_from_env()
-enable_compilation_cache()
-
-VPU_PEAK = 6.1e12  # f32 op/s, no-FMA (see module docstring)
+# Published dense peaks per device_kind: f32 FLOP/s outside the tensor cores
+# and HBM bytes/s.  Source: NVIDIA H100 data sheet, SXM part, at the full
+# 700 W power limit.
+PEAKS = {
+    "NVIDIA H100 80GB HBM3": {"f32_flops": 67e12, "hbm_bytes": 3.35e12},
+}
 STAND = np.array(
     [0.0, 0.0, 0.55, 1.0, 0.0, 0.0, 0.0, 0.0, 1.0, 0.0, -1.0, 0.0, -1.0,
      0.0, 1.0], np.float32,
@@ -70,13 +62,23 @@ def measure_engine(batch, steps, integrator, iters, windows=5):
                                     length=steps)
         return jnp.sum(q) + jnp.sum(v)
 
-    _ = float(run(qpos, qvel, warm, ctrl))      # compile + warm
+    jax.block_until_ready(run(qpos, qvel, warm, ctrl))  # compile + warm
     times = []
     for _ in range(windows):
         t0 = time.perf_counter()
-        _ = float(run(qpos, qvel, warm, ctrl))  # scalar fetch = honest sync
+        jax.block_until_ready(run(qpos, qvel, warm, ctrl))
         times.append(time.perf_counter() - t0)
     return batch * steps / float(np.median(times))
+
+
+def peak_for(device) -> dict:
+    """The :data:`PEAKS` row of ``device``; unknown devices raise."""
+    try:
+        return PEAKS[device.device_kind]
+    except KeyError:
+        raise KeyError(
+            f"no published peak for device_kind {device.device_kind!r}; "
+            "add it to PEAKS with its source") from None
 
 
 def main():
@@ -86,6 +88,9 @@ def main():
     ap.add_argument("--skip-measure", action="store_true",
                     help="FLOP counts only (no device timing)")
     args = ap.parse_args()
+    peak = None if args.skip_measure else peak_for(jax.devices()[0])
+    if peak is not None:
+        enable_compilation_cache()
 
     model = make_ant_model(TAG_WALLS)
     q = jnp.asarray(STAND)
@@ -108,8 +113,10 @@ def main():
             rec.update({
                 "batch": args.batch,
                 "env_steps_per_s": round(sps),
+                "device_kind": jax.devices()[0].device_kind,
                 "achieved_tflops": round(fl * sps / 1e12, 3),
-                "vpu_mfu_pct": round(100 * fl * sps / VPU_PEAK, 1),
+                "f32_peak_share_pct": round(100 * fl * sps
+                                            / peak["f32_flops"], 2),
             })
         print(json.dumps(rec), flush=True)
 

@@ -1,4 +1,4 @@
-"""gym-po-tpu: TPU-native vectorized partially-observable RL environment suite.
+"""gym-po-tpu: vectorized partially-observable RL environment suite in JAX.
 
 A from-scratch JAX/XLA re-design of the capabilities of ``gym_po``
 (DavidSlayback/gym-po-taxi): pure-functional envs with in-graph autoreset,

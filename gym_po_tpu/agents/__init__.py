@@ -4,7 +4,6 @@ from .qlearning import (
     fused_actor_critic,
     fused_q_learning,
     greedy_policy,
-    make_xla_q_chunk_trainer,
     q_learning,
 )
 from .ppo_rnn import (
@@ -44,7 +43,6 @@ __all__ = [
     "QConfig",
     "fused_q_learning",
     "fused_actor_critic",
-    "make_xla_q_chunk_trainer",
     "q_learning",
     "greedy_policy",
 ]

@@ -1,29 +1,33 @@
-"""Actor-critic networks for the Podracer learner.
+"""Actor-critic networks for the Podracer learner, in plain JAX.
 
 The reference ships no agents (SURVEY.md §0); this is the learner half of the
-north-star config ("Podracer-style PPO consuming sharded rollouts").  Design
-notes for TPU:
+north-star config ("Podracer-style PPO consuming sharded rollouts").
+Parameters are a pytree of arrays; a network is a small frozen object with
+``init(key, ...) -> params`` and ``apply(params, ...)``.  Design notes:
 
 * observations are embedded to a fixed feature width so the hot path is
-  dense matmuls that tile onto the MXU;
-* compute dtype is a constructor knob — ``bfloat16`` halves HBM traffic and
-  doubles MXU throughput; params and the final logits/value head stay
+  dense matmuls;
+* compute dtype is a constructor knob — ``bfloat16`` halves memory traffic
+  and runs on the tensor cores; params and the final logits/value head stay
   ``float32`` for stable optimization;
 * everything is shape-static and jit/vmap/scan/shard_map-safe.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import hashlib
 from typing import Any, Sequence, Tuple
 
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import linen as nn
 
 from ..core import Box, Discrete, Space
 
 __all__ = ["ActorCritic", "obs_features", "make_actor_critic"]
+
+_init = jax.nn.initializers
 
 
 def obs_features(space: Space) -> int:
@@ -38,8 +42,8 @@ def obs_features(space: Space) -> int:
 def encode_obs(space: Space, obs: jax.Array, dtype: Any) -> jax.Array:
     """Flat-encode a raw observation: one-hot for Discrete, flatten for Box.
 
-    One-hot × dense-layer is a gather expressed as a matmul — exactly what
-    the MXU wants for the small discrete POMDP observation spaces here.
+    One-hot × dense-layer is a gather expressed as a matmul, which keeps the
+    small discrete POMDP observation spaces on the same dense path as Box.
     """
     if isinstance(space, Discrete):
         return jax.nn.one_hot(obs, space.n, dtype=dtype)
@@ -47,7 +51,66 @@ def encode_obs(space: Space, obs: jax.Array, dtype: Any) -> jax.Array:
     return flat.astype(dtype)
 
 
-class ActorCritic(nn.Module):
+def layer_key(key, *path) -> jax.Array:
+    """Key of the first parameter of the layer at ``path`` below ``key``:
+    SHA-1 of the path names and the per-layer counter folded into the key,
+    the derivation of the Flax library, so initial parameters equal those of
+    the same architecture written with it."""
+    m = hashlib.sha1()
+    for x in path + (1,):
+        m.update(x.encode() if isinstance(x, str)
+                 else x.to_bytes((x.bit_length() + 7) // 8, "big"))
+    return jax.random.fold_in(key, jnp.uint32(int.from_bytes(m.digest()[:4],
+                                                             "big")))
+
+
+def dense_init(key, n_in: int, n_out: int, kernel_init=None,
+               use_bias: bool = True):
+    """Parameters of one dense layer (lecun-normal kernel, zero bias);
+    ``key`` is the layer's :func:`layer_key`."""
+    kernel_init = kernel_init or _init.lecun_normal()
+    p = {"kernel": kernel_init(key, (n_in, n_out), jnp.float32)}
+    if use_bias:
+        p["bias"] = jnp.zeros((n_out,), jnp.float32)
+    return p
+
+
+def dense(p, x: jax.Array, dtype: Any = jnp.float32) -> jax.Array:
+    """``x @ kernel + bias`` with inputs and params cast to ``dtype``."""
+    y = jnp.matmul(x.astype(dtype), p["kernel"].astype(dtype))
+    if "bias" in p:
+        y = y + p["bias"].astype(dtype)
+    return y
+
+
+def policy_head_init(key, n_in: int, action_space: Space, first: int):
+    """Policy (orthogonal 0.01) and value (orthogonal 1.0) head params; the
+    two layers are the network's dense layers ``first`` and ``first + 1``."""
+    kp = layer_key(key, f"Dense_{first}")
+    kv = layer_key(key, f"Dense_{first + 1}")
+    small = _init.orthogonal(0.01)
+    if isinstance(action_space, Discrete):
+        head = {"logits": dense_init(kp, n_in, int(action_space.n), small)}
+    else:
+        adim = int(np.prod(action_space.shape)) or 1
+        head = {"mean": dense_init(kp, n_in, adim, small),
+                "log_std": jnp.zeros((adim,), jnp.float32)}
+    head["value"] = dense_init(kv, n_in, 1, _init.orthogonal(1.0))
+    return head
+
+
+def policy_head(p, x: jax.Array):
+    """(pi, value) from the f32 features ``x``."""
+    if "logits" in p:
+        pi = {"kind": "categorical", "logits": dense(p["logits"], x)}
+    else:
+        pi = {"kind": "gaussian", "mean": dense(p["mean"], x),
+              "log_std": p["log_std"]}
+    return pi, jnp.squeeze(dense(p["value"], x), -1)
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class ActorCritic:
     """MLP torso with categorical (Discrete) or Gaussian (Box) policy head."""
 
     obs_space: Space
@@ -55,41 +118,22 @@ class ActorCritic(nn.Module):
     hidden: Sequence[int] = (64, 64)
     compute_dtype: Any = jnp.float32
 
-    @nn.compact
-    def __call__(self, obs: jax.Array) -> Tuple[Any, jax.Array]:
+    def init(self, key: jax.Array, obs: jax.Array):
+        """Parameters for observations shaped like ``obs``."""
+        n_in = obs_features(self.obs_space)
+        torso = []
+        for i, width in enumerate(self.hidden):
+            torso.append(dense_init(layer_key(key, f"Dense_{i}"), n_in, width,
+                                    _init.orthogonal(float(np.sqrt(2)))))
+            n_in = width
+        head = policy_head_init(key, n_in, self.action_space, len(torso))
+        return {"torso": torso, "head": head}
+
+    def apply(self, params, obs: jax.Array) -> Tuple[Any, jax.Array]:
         x = encode_obs(self.obs_space, obs, self.compute_dtype)
-        kinit = nn.initializers.orthogonal(float(np.sqrt(2)))
-        for width in self.hidden:
-            x = nn.Dense(
-                width, kernel_init=kinit, dtype=self.compute_dtype
-            )(x)
-            x = nn.tanh(x)
-        if isinstance(self.action_space, Discrete):
-            logits = nn.Dense(
-                self.action_space.n,
-                kernel_init=nn.initializers.orthogonal(0.01),
-                dtype=jnp.float32,
-            )(x)
-            pi = {"kind": "categorical", "logits": logits.astype(jnp.float32)}
-        else:
-            adim = int(np.prod(self.action_space.shape)) or 1
-            mean = nn.Dense(
-                adim,
-                kernel_init=nn.initializers.orthogonal(0.01),
-                dtype=jnp.float32,
-            )(x)
-            log_std = self.param(
-                "log_std", nn.initializers.zeros, (adim,), jnp.float32
-            )
-            pi = {
-                "kind": "gaussian",
-                "mean": mean.astype(jnp.float32),
-                "log_std": log_std,
-            }
-        value = nn.Dense(
-            1, kernel_init=nn.initializers.orthogonal(1.0), dtype=jnp.float32
-        )(x)
-        return pi, jnp.squeeze(value.astype(jnp.float32), -1)
+        for layer in params["torso"]:
+            x = jnp.tanh(dense(layer, x, self.compute_dtype))
+        return policy_head(params["head"], x.astype(jnp.float32))
 
 
 # ---------------------------------------------------------------- policies

@@ -8,7 +8,7 @@ This is the Anakin-layout recurrent learner:
   in-graph where episodes ended (matching the envs' autoreset);
 * BPTT over whole rollout sequences: minibatches split the ENV axis (never
   the time axis), each sequence replayed from its stored initial hidden
-  state — the standard recurrent-PPO scheme, TPU-friendly because every
+  state — the standard recurrent-PPO scheme, accelerator-friendly because every
   sequence has identical static length;
 * same sharding story as :mod:`gym_po_tpu.agents.ppo`: params replicated,
   env batch + hidden states sharded over ``data``, one gradient ``psum``.
@@ -16,6 +16,7 @@ This is the Anakin-layout recurrent learner:
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 from typing import Any, Callable, NamedTuple, Optional, Tuple
 
@@ -23,20 +24,47 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import optax
-from flax import linen as nn
-from flax import struct
 from ..parallel.mesh import shard_map
 from jax.sharding import Mesh, PartitionSpec as P
 
-from ..core import Discrete, Environment
+from ..core import Environment, PyTreeNode
 from . import networks
-from .networks import encode_obs
+from .networks import (
+    dense,
+    dense_init,
+    encode_obs,
+    layer_key,
+    obs_features,
+    policy_head,
+    policy_head_init,
+)
 from .ppo import PPOConfig, _gae, _optimizer
 
 __all__ = ["RecurrentActorCritic", "RNNTrainState", "init_rnn_state", "make_rnn_train_step"]
 
 
-class RecurrentActorCritic(nn.Module):
+def gru_init(key, n_in: int, hidden: int, name: str = "GRUCell_0"):
+    """GRU cell params: lecun-normal input kernels with bias, orthogonal
+    recurrent kernels (only the candidate gate's has a bias)."""
+    rec = jax.nn.initializers.orthogonal()
+    p = {g: dense_init(layer_key(key, name, g), n_in, hidden)
+         for g in ("ir", "iz", "in")}
+    for g in ("hr", "hz", "hn"):
+        p[g] = dense_init(layer_key(key, name, g), hidden, hidden, rec,
+                          use_bias=(g == "hn"))
+    return p
+
+
+def gru(p, h: jax.Array, x: jax.Array, dtype: Any) -> jax.Array:
+    """One GRU step: ``h' = (1 - z) * n + z * h``."""
+    r = jax.nn.sigmoid(dense(p["ir"], x, dtype) + dense(p["hr"], h, dtype))
+    z = jax.nn.sigmoid(dense(p["iz"], x, dtype) + dense(p["hz"], h, dtype))
+    n = jnp.tanh(dense(p["in"], x, dtype) + r * dense(p["hn"], h, dtype))
+    return (1.0 - z) * n + z * h
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class RecurrentActorCritic:
     """Dense embed -> GRU -> categorical/Gaussian + value heads."""
 
     obs_space: Any
@@ -44,43 +72,33 @@ class RecurrentActorCritic(nn.Module):
     hidden: int = 128
     compute_dtype: Any = jnp.float32
 
-    @nn.compact
-    def __call__(self, h: jax.Array, obs: jax.Array, reset: jax.Array):
+    def init(self, key: jax.Array, h: jax.Array, obs: jax.Array,
+             reset: jax.Array):
+        """Parameters for inputs shaped like one :meth:`apply` step."""
+        del h, obs, reset  # shapes follow from the spaces
+        return {
+            "embed": dense_init(layer_key(key, "Dense_0"),
+                                obs_features(self.obs_space), self.hidden),
+            "gru": gru_init(key, self.hidden, self.hidden),
+            "head": policy_head_init(key, self.hidden, self.action_space, 1),
+        }
+
+    def apply(self, params, h: jax.Array, obs: jax.Array, reset: jax.Array):
         """One step: (h, obs[B], reset[B]) -> (h', pi, value)."""
-        x = encode_obs(self.obs_space, obs, self.compute_dtype)
-        x = nn.tanh(nn.Dense(self.hidden, dtype=self.compute_dtype)(x))
+        dt = self.compute_dtype
+        x = jnp.tanh(dense(params["embed"], encode_obs(self.obs_space, obs,
+                                                       dt), dt))
         # in-graph hidden reset where the previous step finished an episode
         h = jnp.where(reset[:, None], jnp.zeros_like(h), h)
-        h, y = nn.GRUCell(self.hidden, dtype=self.compute_dtype)(h, x)
-        y32 = y.astype(jnp.float32)
-        if isinstance(self.action_space, Discrete):
-            logits = nn.Dense(
-                self.action_space.n,
-                kernel_init=nn.initializers.orthogonal(0.01),
-                dtype=jnp.float32,
-            )(y32)
-            pi = {"kind": "categorical", "logits": logits}
-        else:
-            adim = int(np.prod(self.action_space.shape)) or 1
-            mean = nn.Dense(
-                adim,
-                kernel_init=nn.initializers.orthogonal(0.01),
-                dtype=jnp.float32,
-            )(y32)
-            log_std = self.param(
-                "log_std", nn.initializers.zeros, (adim,), jnp.float32
-            )
-            pi = {"kind": "gaussian", "mean": mean, "log_std": log_std}
-        value = nn.Dense(
-            1, kernel_init=nn.initializers.orthogonal(1.0), dtype=jnp.float32
-        )(y32)
-        return h, pi, jnp.squeeze(value, -1)
+        h = gru(params["gru"], h, x, dt)
+        pi, value = policy_head(params["head"], h.astype(jnp.float32))
+        return h, pi, value
 
     def initial_state(self, batch: int) -> jax.Array:
         return jnp.zeros((batch, self.hidden), self.compute_dtype)
 
 
-class RNNTrainState(struct.PyTreeNode):
+class RNNTrainState(PyTreeNode):
     params: Any
     opt_state: Any
     env_obs: jax.Array

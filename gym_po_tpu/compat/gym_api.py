@@ -1,4 +1,4 @@
-"""Drop-in gymnasium vector API over the functional TPU envs.
+"""Drop-in gymnasium vector API over the functional JAX envs.
 
 A user of the reference (``gym_po``) drives stateful vec envs:
 

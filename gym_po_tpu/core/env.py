@@ -1,6 +1,6 @@
 """Core functional environment protocol.
 
-Design (TPU-first, contrast with the reference's stateful gymnasium classes,
+Design (accelerator-first, contrast with the reference's stateful gymnasium classes,
 e.g. reference ``gym_po/envs/extended_taxi.py:149-287``):
 
 * An :class:`Environment` instance holds only *static, host-compiled* data
@@ -27,14 +27,14 @@ from __future__ import annotations
 from typing import Any, Dict, Generic, Tuple, TypeVar
 
 import jax
-from flax import struct
 
+from .pytree import PyTreeNode
 from .spaces import Space
 
-__all__ = ["EnvState", "Environment", "StepOut"]
+__all__ = ["EnvState", "Environment", "PyTreeNode", "StepOut"]
 
 
-class EnvState(struct.PyTreeNode):
+class EnvState(PyTreeNode):
     """Base class for per-instance environment state pytrees.
 
     ``elapsed`` mirrors the reference's per-env step counter
@@ -55,7 +55,7 @@ class Environment(Generic[TState]):
 
     Subclasses precompute all lookup tables on the host in ``__init__`` and
     implement ``reset_env`` / ``step_env``.  Batch execution is obtained with
-    ``jax.vmap`` (see :mod:`gym_po_tpu.vector`), multi-chip execution with
+    ``jax.vmap`` (see :mod:`gym_po_tpu.vector`), multi-device execution with
     ``shard_map`` over a device mesh (see :mod:`gym_po_tpu.parallel`).
     """
 
@@ -90,7 +90,7 @@ class Environment(Generic[TState]):
     # ------------------------------------------------------ batched fast path
     # Splitting one key per env per step costs a threefry block per env on
     # top of every actual draw — measured ~2.5x slower than drawing [B]-shaped
-    # randomness from ONE key (57M vs 22M taxi steps/s/chip at B=64k).  The
+    # randomness from ONE key on the previous accelerator.  The
     # defaults below are correct for any env; each env overrides them with a
     # batched-draw version.  Distributions are identical; only the key->draw
     # mapping differs, so perf-mode trajectories differ from vmap(step) for

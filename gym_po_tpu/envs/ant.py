@@ -7,7 +7,7 @@ robots with partially-observable goals, driven through gymnasium's
 (:mod:`gym_po_tpu.envs.mjcf`) instead of shipped XML assets.
 
 These are the only envs in the suite whose physics runs on the host CPU —
-MuJoCo's C pipeline, exactly like the reference.  A TPU-native (MJX) variant
+MuJoCo's C pipeline, exactly like the reference.  A JAX-native (MJX) variant
 is gated behind ``mujoco.mjx`` availability, which this image does not
 provide; the observation/reward/target logic below is already pure NumPy on
 fetched state, so an MJX port swaps only the physics substrate.

@@ -1,5 +1,5 @@
 """AntTagPhysics / AntHeavenHellPhysics — the full articulated ant POMDPs
-on the TPU-native rigid-body engine.
+on the repo's JAX rigid-body engine.
 
 These are the complete reference environments (reference
 ``gym_po/envs/ant_tag.py``, ``ant_heaven_hell.py``) with the MuJoCo C
@@ -7,7 +7,7 @@ substrate replaced by :mod:`gym_po_tpu.physics` — same 8-DoF quadruped,
 same RK4 @ 0.02 s × frame_skip 15, same task layer — as pure-functional
 jit/vmap/scan-safe Environments.  Unlike :mod:`.ant` (host MuJoCo, single
 env) and :mod:`.tag_jax` (point-mass task surrogates), these run the
-articulated body itself on TPU in batch.
+articulated body itself on the accelerator in batch.
 
 Task semantics (identical to :mod:`.ant` / the reference):
 
@@ -153,7 +153,7 @@ class _AntPhysicsBase(Environment):
 
 
 class AntTagPhysics(_AntPhysicsBase):
-    """Articulated ant tag (full reference env, TPU physics)."""
+    """Articulated ant tag (full reference env, JAX physics)."""
 
     name = "AntTagPhysics-v0"
 
@@ -163,7 +163,7 @@ class AntTagPhysics(_AntPhysicsBase):
                  visible_radius: float = VISIBLE_RADIUS):
         """``visible_radius``: target visibility cutoff (reference
         ant_tag.py:77-86 uses 3.0); smaller = deeper partial
-        observability, the memory-pays regime (BASELINE.md)."""
+        observability, the memory-pays regime."""
         super().__init__(TAG_WALLS, time_limit, frame_skip, solver_iters,
                          integrator, ls_iters, pipeline)
         self.visible_radius = float(visible_radius)
@@ -304,7 +304,7 @@ class AntTagPhysics(_AntPhysicsBase):
 
 
 class AntHeavenHellPhysics(_AntPhysicsBase):
-    """Articulated ant T-maze (full reference env, TPU physics)."""
+    """Articulated ant T-maze (full reference env, JAX physics)."""
 
     name = "AntHeavenHellPhysics-v0"
 

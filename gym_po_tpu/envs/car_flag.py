@@ -1,4 +1,4 @@
-"""TPU-native vectorizable Car-Flag (heaven/hell car).
+"""Vectorizable JAX Car-Flag (heaven/hell car).
 
 Re-expresses the reference ``CarVecEnv`` / ``DiscreteActionCarVecEnv``
 (reference ``gym_po/envs/car_flag.py:23-303``) as a pure-functional JAX

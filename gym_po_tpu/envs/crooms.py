@@ -1,4 +1,4 @@
-"""TPU-native vectorizable C-ROOMS (continuous rooms).
+"""Vectorizable JAX C-ROOMS (continuous rooms).
 
 Re-expresses the reference ``CRoomsEnv`` (reference
 ``gym_po/envs/rooms/crooms.py:91-338``) as a pure-functional JAX environment:
@@ -28,7 +28,6 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from ..ops import row_gather, table_gather
 from ..core import Box, Discrete, Environment, EnvState
 from ..maps.layouts import LAYOUT_NAMES, layout_end, layout_grid, layout_start
 from ..obs.observations import make_rooms_obs
@@ -188,7 +187,7 @@ class CRooms(Environment[CRoomsState]):
 
     def _wall_at(self, coord: jax.Array) -> jax.Array:
         c = self._cell(coord)
-        return table_gather(self._grid_flat, c[..., 0] * self._W + c[..., 1]) == -1
+        return self._grid_flat[c[..., 0] * self._W + c[..., 1]] == -1
 
     def displacement(self, executed: jax.Array) -> jax.Array:
         """Discrete executed action -> float displacement."""
@@ -335,7 +334,7 @@ class CRooms(Environment[CRoomsState]):
         if fixed is not None:
             return jnp.broadcast_to(jnp.asarray(fixed, dtype), (num, 2))
         idx = jax.random.randint(key, (num,), 0, self._valid_coord.shape[0])
-        return row_gather(self._valid_coord, idx).astype(dtype)
+        return self._valid_coord[idx].astype(dtype)
 
     def _sample_effective_vec(self, key, action: jax.Array) -> jax.Array:
         B = action.shape[0]
@@ -345,7 +344,7 @@ class CRooms(Environment[CRoomsState]):
         ku, kn = jax.random.split(key)
         u = jax.random.uniform(ku, (B,))
         executed = self._exec(action, u)  # polymorphic
-        disp = row_gather(self._disp, executed)
+        disp = self._disp[executed]
         if self.action_std:
             disp = disp + jax.random.normal(kn, (B, 2), disp.dtype) * self.action_std
         return disp * self.action_power

@@ -1,4 +1,4 @@
-"""TPU-native vectorizable Multistory FourRooms.
+"""Vectorizable JAX Multistory FourRooms.
 
 Re-expresses the reference ``MultistoryFourRoomsEnv`` (reference
 ``gym_po/envs/rooms/msrooms.py:257-433``) as a pure-functional JAX
@@ -40,7 +40,6 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from ..ops import row_gather, table_gather
 from ..core import Box, Discrete, Environment, EnvState, Space
 from ..utils.actions import (
     ACTIONS_CARDINAL_Z,
@@ -107,10 +106,8 @@ def make_msrooms_obs(
     _W = grid.shape[2]
 
     def grid_at(zyx):
-        """grid[z, y, x] via the MXU fast-gather path (ops.table_gather)."""
-        return table_gather(
-            grid_flat, zyx[..., 0] * _HW + zyx[..., 1] * _W + zyx[..., 2]
-        )
+        """grid[z, y, x] from the flat grid."""
+        return grid_flat[zyx[..., 0] * _HW + zyx[..., 1] * _W + zyx[..., 2]]
 
     S = grid.shape[0]
 
@@ -135,9 +132,9 @@ def make_msrooms_obs(
             sg_flat = jnp.asarray(sg_np.reshape(-1), jnp.int32)
 
             def sg_at(zyx):
-                return table_gather(
-                    sg_flat, zyx[..., 0] * _HW + zyx[..., 1] * _W + zyx[..., 2]
-                )
+                return sg_flat[
+                    zyx[..., 0] * _HW + zyx[..., 1] * _W + zyx[..., 2]
+                ]
 
             if has_goal:
                 space = Discrete(int(n**2))
@@ -298,18 +295,16 @@ class MultistoryFourRooms(Environment[MSRoomsState]):
     ) -> Tuple[MSRoomsState, jax.Array, jax.Array, jax.Array]:
         """Move + stair transit + reward (reference msrooms.py:398-413)."""
         elapsed = state.elapsed + 1
-        proposed = state.agent_zyx + row_gather(self._actions, executed)
-        cell = table_gather(
-            self._grid_flat,
-            proposed[..., 0] * self._HW + proposed[..., 1] * self._W3 + proposed[..., 2],
-        )
+        proposed = state.agent_zyx + self._actions[executed]
+        cell = self._grid_flat[
+            proposed[..., 0] * self._HW + proposed[..., 1] * self._W3 + proposed[..., 2]
+        ]
         oob = cell == WALL
         agent = jnp.where(oob, state.agent_zyx, proposed)
         # stair transit only when the agent moved (reference :419-428)
-        acell = table_gather(
-            self._grid_flat,
-            agent[..., 0] * self._HW + agent[..., 1] * self._W3 + agent[..., 2],
-        )
+        acell = self._grid_flat[
+            agent[..., 0] * self._HW + agent[..., 1] * self._W3 + agent[..., 2]
+        ]
         go_up = (acell == STAIR_UP) & ~oob
         go_down = (acell == STAIR_DOWN) & ~oob
         up_pos = jnp.concatenate(
@@ -388,7 +383,7 @@ class MultistoryFourRooms(Environment[MSRoomsState]):
         if fixed is not None:
             return jnp.broadcast_to(jnp.asarray(fixed, jnp.int32), (num, 3))
         idx = jax.random.randint(key, (num,), 0, bank.shape[0])
-        return row_gather(bank, idx)
+        return bank[idx]
 
     def reset_vec(self, key: jax.Array, num_envs: int):
         kg, ka = jax.random.split(key)

@@ -1,4 +1,4 @@
-"""RockSample(n, k) — TPU-native vectorizable implementation.
+"""RockSample(n, k) — vectorizable JAX implementation.
 
 The reference ships only an empty stub (reference
 ``gym_po/envs/rocksample/rocksample.py:22-42``: enums ``Obs{NULL,GOOD,BAD}``
@@ -154,8 +154,7 @@ class RockSample(Environment[RockSampleState]):
                               state.rock_good)
 
         # sensing: accuracy eta = 0.5 * (1 + 2^(-d/d0)); the per-rock selects
-        # are one-hot contractions over k (k is tiny; native dynamic indexing
-        # serializes on the VPU under vmap)
+        # are one-hot contractions over k (k is tiny)
         ksel = jax.nn.one_hot(rock_idx, self.k, dtype=jnp.float32)  # [k]
         rpos = jnp.matmul(ksel, self._rocks.astype(jnp.float32))
         diff = state.pos_yx.astype(jnp.float32) - rpos

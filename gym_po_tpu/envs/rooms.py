@@ -1,4 +1,4 @@
-"""TPU-native vectorizable ROOMS (discrete).
+"""Vectorizable JAX ROOMS (discrete).
 
 Re-expresses the reference ``RoomsEnv`` (reference
 ``gym_po/envs/rooms/rooms.py:71-227``) as a pure-functional JAX environment:
@@ -15,7 +15,6 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from ..ops import row_gather, table_gather
 from ..core import Discrete, Environment, EnvState
 from ..maps.layouts import LAYOUT_NAMES, layout_end, layout_grid, layout_start
 from ..obs.observations import make_rooms_obs
@@ -122,10 +121,8 @@ class Rooms(Environment[RoomsState]):
     ) -> Tuple[RoomsState, jax.Array, jax.Array, jax.Array]:
         """Deterministic move + reward (reference rooms.py:208-220)."""
         elapsed = state.elapsed + 1
-        proposed = state.agent_yx + row_gather(self._actions, executed)
-        oob = table_gather(
-            self._grid_flat, proposed[..., 0] * self._W + proposed[..., 1]
-        ) == -1
+        proposed = state.agent_yx + self._actions[executed]
+        oob = self._grid_flat[proposed[..., 0] * self._W + proposed[..., 1]] == -1
         agent = jnp.where(oob, state.agent_yx, proposed)
         done = (agent == state.goal_yx).all(-1)
         rew = jnp.where(
@@ -196,7 +193,7 @@ class Rooms(Environment[RoomsState]):
         if fixed is not None:
             return jnp.broadcast_to(jnp.asarray(fixed, jnp.int32), (num, 2))
         idx = jax.random.randint(key, (num,), 0, self._valid_yx.shape[0])
-        return row_gather(self._valid_yx, idx)
+        return self._valid_yx[idx]
 
     def reset_vec(self, key: jax.Array, num_envs: int):
         kg, ka = jax.random.split(key)

@@ -80,7 +80,7 @@ class PotentialShaped(Environment):
     the ``(1 − done)`` factor (the Ng et al. absorbing-state convention).
     State, spaces, and observations pass through untouched.
 
-    ``gamma`` semantics (measured on heaven-hell, BASELINE.md):
+    ``gamma`` semantics (measured on heaven-hell, docs/ARCHITECTURE.md):
 
     * ``gamma = learner discount`` → EXACT policy invariance, but with a
       negative Φ the term pays ``(1-γ)·|Φ|`` per step for *loitering far

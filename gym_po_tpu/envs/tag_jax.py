@@ -67,7 +67,7 @@ class TagContinuous(Environment[TagState]):
                  visible_radius: float = VISIBLE_RADIUS):
         """``visible_radius``: target visibility cutoff (reference
         ant_tag.py:77-86 uses 3.0).  Smaller values deepen the partial
-        observability — the memory-pays regime (BASELINE.md)."""
+        observability — the memory-pays regime."""
         self.name = "TagContinuous-v0"
         self.time_limit = int(time_limit)
         self.agent_speed = float(agent_speed)

@@ -1,4 +1,4 @@
-"""TPU-native vectorizable Taxi / PO-Taxi.
+"""Vectorizable JAX Taxi / PO-Taxi.
 
 Re-expresses the reference ``TaxiVecEnv`` (reference
 ``gym_po/envs/extended_taxi.py:149-377``) as a pure-functional JAX environment.
@@ -23,7 +23,6 @@ import jax.numpy as jnp
 import numpy as np
 
 from ..core import Discrete, Environment, EnvState
-from ..ops import assert_one_hot_exact, table_gather
 from ..maps.taxi_maps import (
     NUM_ACTIONS,
     TAXI_MAP,
@@ -94,13 +93,11 @@ class Taxi(Environment[TaxiState]):
         # factors through the cell: movement only changes (r,c) and
         # pickup/dropoff only consults which landmark is at (r,c), so two
         # TINY tables (cell_move [cells*4], loc_at [cells]) + integer codec
-        # arithmetic replace the big gather — both ride the MXU one-hot path
-        # (gym_po_tpu.ops.table_gather).
+        # arithmetic replace the big gather.
         ncells = t.rows * t.cols
         pd = (t.nlocs + 1) * t.nlocs
         s0 = np.arange(ncells, dtype=np.int64) * pd  # states with p=0, d=0
         cell_move = t.next_s[s0][:, :4] // pd  # [cells, 4] -> new cell
-        assert_one_hot_exact(cell_move)
         self._cell_move = jnp.asarray(cell_move.reshape(-1), jnp.int32)
         loc_at = np.full(ncells, t.nlocs, np.int64)  # sentinel: no landmark
         lm = t.np_locs[: t.nlocs]
@@ -141,10 +138,10 @@ class Taxi(Environment[TaxiState]):
         p = rem // self.nlocs
         d = rem % self.nlocs
         # movement actions 0-3 via the cell-level table
-        rc_mv = table_gather(self._cell_move, rc * 4 + jnp.minimum(action, 3))
+        rc_mv = self._cell_move[rc * 4 + jnp.minimum(action, 3)]
         # pickup/dropoff action 4 (reference :262-275)
         is_pd = action == NUM_ACTIONS - 1
-        loc = table_gather(self._loc_at, rc)
+        loc = self._loc_at[rc]
         goal = is_pd & (p == self.nlocs) & (loc == d)
         pickup = is_pd & (p < self.nlocs) & (loc == p)
         bad = is_pd & ~goal & ~pickup
@@ -197,7 +194,7 @@ class Taxi(Environment[TaxiState]):
         if self.hansen:
             rc = state.s // self._pd
             rem = state.s % self._pd
-            h = table_gather(self._hansen_cell, rc)
+            h = self._hansen_cell[rc]
             return (h * (self.nlocs + 1) + rem // self.nlocs) * self.nlocs + (
                 rem % self.nlocs
             )

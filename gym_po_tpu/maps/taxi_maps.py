@@ -1,7 +1,7 @@
 """Host-side taxi map compiler.
 
 Compiles the ASCII taxi maps into dense lookup tables so that the on-device
-step is nothing but integer gathers (TPU speed-of-light for this workload):
+step is nothing but integer gathers (memory-bound on any accelerator):
 
 * ``next_s[s, a]``   — full tabular transition over the encoded state space
 * ``event[s, a]``    — move classification (none / goal dropoff / pickup / bad)

@@ -27,7 +27,6 @@ import jax.numpy as jnp
 import numpy as np
 
 from ..core.spaces import Box, Discrete, Space
-from ..ops import table_gather
 from ..utils.actions import ACTIONS_CARDINAL, ACTIONS_ORDINAL
 
 __all__ = [
@@ -66,14 +65,13 @@ def make_rooms_obs(
     continuous = cell_size is not None
     is_vector = "vector" in obs_type
     has_goal = "goal" in obs_type
-    # flat grid + MXU-routed lookups (gym_po_tpu.ops.table_gather): native
-    # 1-D gathers serialize on the TPU VPU; these grids are tiny
+    # flat grid: one gather per lookup
     grid_flat = jnp.asarray(grid.reshape(-1), jnp.int32)
     _W = grid.shape[-1]
 
     def grid_at(yx):
-        """grid[yx[..., 0], yx[..., 1]] via the fast-gather path."""
-        return table_gather(grid_flat, yx[..., 0] * _W + yx[..., 1])
+        """grid[yx[..., 0], yx[..., 1]] from the flat grid."""
+        return grid_flat[yx[..., 0] * _W + yx[..., 1]]
 
     if continuous:
         def to_cell(x):
@@ -116,7 +114,7 @@ def make_rooms_obs(
             sg_flat = jnp.asarray(state_grid(grid).reshape(-1), jnp.int32)
 
             def sg_at(yx):
-                return table_gather(sg_flat, yx[..., 0] * _W + yx[..., 1])
+                return sg_flat[yx[..., 0] * _W + yx[..., 1]]
 
             if has_goal:
                 space = Discrete(int(n**2))
@@ -226,7 +224,7 @@ def make_rooms_obs(
                     & (probe[:, 1] >= 0)
                     & (probe[:, 1] < Wg * (cell_size or 1.0))
                 )
-                wall = (table_gather(grid_flat, cy * _W + cx) < 0) | ~inside
+                wall = (grid_flat[cy * _W + cx] < 0) | ~inside
                 hit_t = jnp.where(wall & (t < hit_t), t, hit_t)
                 return hit_t, None
 

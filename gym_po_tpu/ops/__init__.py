@@ -1,11 +1,6 @@
-# .gather must import first: the env modules (pulled in by the fused
-# kernels below) import row_gather/table_gather from this package.
-from .gather import (
-    ONE_HOT_MAX_TABLE,
-    assert_one_hot_exact,
-    row_gather,
-    table_gather,
-)
+"""Fused K-step rollouts and tabular trainers (plain JAX; the taxi rollout
+also as a Pallas/Triton GPU kernel), driven by a counter-based generator."""
+
 from .fused_ac import make_fused_ac_trainer_rooms
 from .fused_crooms import make_fused_crooms_rollout
 from .fused_msrooms import make_fused_msrooms_rollout
@@ -25,10 +20,6 @@ from .fused_tag import make_fused_heavenhell_rollout, make_fused_tag_rollout
 from .fused_taxi import make_fused_taxi_rollout, state_policy_table
 
 __all__ = [
-    "table_gather",
-    "row_gather",
-    "ONE_HOT_MAX_TABLE",
-    "assert_one_hot_exact",
     "make_fused_taxi_rollout",
     "make_fused_rooms_rollout",
     "make_fused_rocksample_rollout",

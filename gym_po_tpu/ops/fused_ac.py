@@ -1,27 +1,25 @@
-"""Pallas fused tabular actor-critic: softmax policy-gradient RL in-kernel.
+"""Fused tabular actor-critic: softmax policy-gradient RL in one loop.
 
 Companion to :mod:`.fused_qlearning` — a second algorithm family trained
-entirely inside one TPU kernel.  One-step actor-critic (Sutton & Barto
+entirely inside one ``fori_loop``.  One-step actor-critic (Sutton & Barto
 ch. 13): a softmax policy over logits θ[obs, a] and a value table V[obs],
-both VMEM-resident, updated every step from the TD error
+both updated every step from the TD error
 
     δ  = r + γ·V[obs']·(1-done) - V[obs]
     V[obs]    += α_v · δ
     θ[obs,a'] += α_π · δ · (1[a'=a] - π(a'|obs))   for every action a'
 
-The ∇log π update touches ALL actions of the visited observation, so the
-scatter runs A+1 MXU mask-matmul passes per step (A policy banks + the
-value bank) — the same iota-mask scatter as the Q trainer
-(:func:`.fused_qlearning._mxu_scatter`).  Action sampling is Gumbel-max
-over the logits with strictly-interior uniforms (``(bits24 + 0.5)·2⁻²⁴``,
-no ±inf in the transcendentals).  Duplicate updates within a batch are
-averaged per visited observation (batch-size-invariant step sizes, see the
-Q trainer's divergence note).
+The ∇log π update touches ALL actions of the visited observation, so each
+step runs A+1 scatter-adds (A policy banks + the value bank).  Action
+sampling is Gumbel-max over the logits with strictly-interior uniforms
+(``(bits24 + 0.5)·2⁻²⁴``, no ±inf in the transcendentals).  Duplicate
+updates within a batch are averaged per visited observation
+(batch-size-invariant step sizes, see the Q trainer's divergence note).
 
 ROOMS with a fixed goal (any discrete observation model via the
-host-precomputed per-cell obs table).  Hardware PRNG → stats-matched, not
-bit-exact, vs an XLA implementation; the zero-PRNG interpret mode is
-deterministic and oracle-tested.
+host-precomputed per-cell obs table).  Counter generator → stats-matched,
+not bit-exact, vs an XLA implementation with ``jax.random``; tape mode is
+bit-exact against a NumPy oracle.
 """
 
 from __future__ import annotations
@@ -29,46 +27,41 @@ from __future__ import annotations
 import jax
 import jax.numpy as jnp
 import numpy as np
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
-from .fused_qlearning import NB, NSB, W, _first_argmax, _q_lookup
-from .kernel_rng import KernelRNG
+from .fused_qlearning import (
+    NSB,
+    W,
+    _rooms_common,
+    first_argmax,
+    obs_table,
+    q_lookup,
+    rows_of,
+    scatter_update,
+)
+from .kernel_rng import KernelRNG, check_tape
 
 __all__ = ["make_fused_ac_trainer_rooms"]
 
 
 def make_fused_ac_trainer_rooms(env, num_envs: int, num_steps: int,
                                 gamma: float = 0.99,
-                                interpret: bool = False,
                                 rng_tape: bool = False):
     """Build ``run(seed, alpha_pi, alpha_v, theta, v, agent) ->
     (theta', v', agent', reward_sums)``.
 
     ``theta``: f32 ``[32, 128]`` banked logits (``q_to_banks`` layout);
     ``v``: f32 ``[32, 128]`` with only banks 0..3 used (value per obs);
-    ``agent``: int32 flat-cell tile ``[B//128, 128]``; step sizes are SMEM
-    scalars so schedules reuse one executable.
+    ``agent``: int32 flat-cell array ``[B//128, 128]``; step sizes are
+    traced scalars so schedules reuse one executable.
     """
-    from ..core import Discrete
-
-    interpret_mode = pltpu.InterpretParams() if interpret else False
-    if not isinstance(env.observation_space, Discrete):
-        raise ValueError("AC trainer needs a Discrete observation space")
-    n_obs = int(env.observation_space.n)
-    if n_obs > 512:
-        raise ValueError(f"n_obs={n_obs} > 512")
+    n_obs, A, p_fail = _rooms_common(env, "AC trainer")
     if env.fixed_goal_yx is None:
         raise ValueError("AC trainer requires a fixed goal")
     grid_np = env.grid_np
     H, GW = grid_np.shape
     ncells = H * GW
-    A = int(env.num_actions)
-    if A * NSB > NB:
-        raise ValueError(f"{A} actions exceed the {NB}-row bank")
     disp = np.asarray(env._actions)
-    disp_flat = (disp[:, 0] * GW + disp[:, 1]).astype(np.int32)
-    p_fail = 1.0 - float(env._cum[0][0])
+    disp_flat = jnp.asarray((disp[:, 0] * GW + disp[:, 1]).astype(np.int32))
     step_r, wall_r, goal_r = env.step_reward, env.wall_reward, env.goal_reward
     time_limit = int(env.time_limit)
     goal_flat = int(env.fixed_goal_yx[0] * GW + env.fixed_goal_yx[1])
@@ -77,73 +70,24 @@ def make_fused_ac_trainer_rooms(env, num_envs: int, num_steps: int,
         int(fixed_agent[0] * GW + fixed_agent[1])
         if fixed_agent is not None else -1
     )
-
-    def _rows_bank(values: np.ndarray, fill: int) -> np.ndarray:
-        n_rows = -(-values.size // W)
-        bank = np.full((n_rows, W), fill, np.int32)
-        bank.reshape(-1)[: values.size] = values
-        return bank
-
+    walls = grid_np.reshape(-1) == -1
     cells_yx = np.stack(np.divmod(np.arange(ncells), GW), -1).astype(np.int32)
-    with jax.default_device(jax.local_devices(backend="cpu")[0]):
-        obs_all = np.asarray(
-            jax.vmap(
-                lambda yx: env._obs_fn(yx, jnp.asarray(env.fixed_goal_yx))
-            )(jnp.asarray(cells_yx)),
-            np.int64,
-        )
-    obs_tab = np.clip(obs_all, 0, n_obs - 1).astype(np.int32)
-    obs_tab[grid_np.reshape(-1) == -1] = 0
-
-    wall_bank = _rows_bank((grid_np.reshape(-1) == -1).astype(np.int32), 1)
-    valid_cells = np.flatnonzero(grid_np.reshape(-1) >= 0).astype(np.int32)
-    n_valid = valid_cells.size
-    valid_bank = _rows_bank(valid_cells, 0)
-    obs_bank = _rows_bank(obs_tab, 0)
-    disp_bank = _rows_bank(disp_flat, 0)
-    n_wall_rows, n_valid_rows = wall_bank.shape[0], valid_bank.shape[0]
-    n_obs_rows = obs_bank.shape[0]
-    wall_b = jnp.asarray(wall_bank)
-    valid_b = jnp.asarray(valid_bank)
-    obs_b = jnp.asarray(obs_bank)
-    disp_b = jnp.asarray(disp_bank)
-
-    if num_envs % W:
-        raise ValueError("num_envs must be a multiple of 128")
-    R = num_envs // W
-    if R % 8:
-        raise ValueError("num_envs must be a multiple of 1024")
+    obs_tab = jnp.asarray(
+        obs_table(env, cells_yx, env.fixed_goal_yx, n_obs, walls)
+    )
+    is_wall = jnp.asarray(walls.astype(np.int32))
+    valid_np = np.flatnonzero(~walls).astype(np.int32)
+    n_valid = valid_np.size
+    valid_cells = jnp.asarray(valid_np)
+    R = rows_of(num_envs)
     gamma_f = float(gamma)
 
     # draw sites per step, in body-trace order: A gumbel uniforms, failure
     # r24, alt action, agent respawn (fixed spawn: no draw)
     n_sites = A + 2 + (0 if fixed_agent_flat >= 0 else 1)
 
-    def kernel(seed_ref, api_ref, apv_ref, th_ref, v_ref, a_ref,
-               wall_r_, valid_r_, obs_r_, disp_r_, *outs):
-        outs = list(outs)
-        tape_ref = outs.pop(0) if rng_tape else None
-        th_out, v_out, a_out, rew_ref, hi_scr, lo_scr, wtd_scr = outs
-        rng = KernelRNG(R, num_steps, tape_ref=tape_ref)
-        rng.seed(seed_ref[0])
+    def make_body(rng, api, apv):
         rbits, r24 = rng.rbits, rng.r24
-        api_v = api_ref[0]
-        apv_v = apv_ref[0]
-
-        def shuffle(lane_idx, row):
-            return jnp.take_along_axis(
-                jnp.broadcast_to(row, (R, W)), lane_idx, axis=1
-            )
-
-        def bank_gather(idx, bank_ref, n_rows):
-            lane = idx % W
-            row = idx // W
-            out = shuffle(lane, bank_ref[0:1, :])
-            for r in range(1, n_rows):
-                out = jnp.where(
-                    row == r, shuffle(lane, bank_ref[r : r + 1, :]), out
-                )
-            return out
 
         def gumbel():
             # strictly-interior uniform keeps the double log finite
@@ -152,67 +96,21 @@ def make_fused_ac_trainer_rooms(env, num_envs: int, num_steps: int,
             )
             return -jnp.log(-jnp.log(u))
 
-        def sample_agent():
+        def sample_agent(like):
             if fixed_agent_flat >= 0:
-                return jnp.full((R, W), fixed_agent_flat, jnp.int32)
-            return bank_gather(rbits(n_valid), valid_r_, n_valid_rows)
-
-        def scatter_pass(hi, lo, w):
-            """One averaged mask-matmul scatter pass (counts reused: the
-            per-(obs,bank) duplicate count equals the obs visit count)."""
-            hi_scr[:] = hi
-            lo_scr[:] = lo
-            wtd_scr[:] = w
-
-            def hist_chunk(c, acc):
-                acc_s, acc_n = acc
-                hi8 = hi_scr[pl.ds(c * 8, 8), :]
-                lo8 = lo_scr[pl.ds(c * 8, 8), :]
-                w8 = wtd_scr[pl.ds(c * 8, 8), :]
-                for r in range(8):
-                    lo_r = jax.lax.slice(lo8, (r, 0), (r + 1, W))
-                    hi_r = jax.lax.slice(hi8, (r, 0), (r + 1, W))
-                    w_r = jax.lax.slice(w8, (r, 0), (r + 1, W))
-                    P = (
-                        jax.lax.broadcasted_iota(jnp.int32, (W, W), 0)
-                        == jnp.broadcast_to(lo_r, (W, W))
-                    ).astype(jnp.float32)
-                    M = (
-                        jax.lax.broadcasted_iota(jnp.int32, (NB, W), 0)
-                        == jnp.broadcast_to(hi_r, (NB, W))
-                    ).astype(jnp.float32)
-                    X = M * jnp.broadcast_to(w_r, (NB, W))
-                    # bf16x2 split (see fused_qlearning._mxu_scatter)
-                    x_hi = X.astype(jnp.bfloat16).astype(jnp.float32)
-                    x_lo = X - x_hi
-                    dn = (((1,), (1,)), ((), ()))
-                    acc_s = acc_s + jax.lax.dot_general(
-                        x_hi, P, dn, preferred_element_type=jnp.float32,
-                    ) + jax.lax.dot_general(
-                        x_lo, P, dn, preferred_element_type=jnp.float32,
-                    )
-                    acc_n = acc_n + jax.lax.dot_general(
-                        M, P, (((1,), (1,)), ((), ())),
-                        preferred_element_type=jnp.float32,
-                    )
-                return (acc_s, acc_n)
-
-            zero = jnp.zeros((NB, W), jnp.float32)
-            ds, cnt = jax.lax.fori_loop(
-                0, R // 8, hist_chunk, (zero, zero)
-            )
-            return ds / jnp.maximum(cnt, jnp.float32(1.0))
+                return jnp.full(like.shape, fixed_agent_flat, jnp.int32)
+            return valid_cells[rbits(n_valid)]
 
         def body(step, carry):
             th, v, agent, elapsed, racc = carry
             rng.begin_step(step)
-            qidx = bank_gather(agent, obs_r_, n_obs_rows)
-            logits = _q_lookup(th, qidx, R, A)
+            qidx = obs_tab[agent]
+            logits = q_lookup(th, qidx, A)
             # Gumbel-max sampling from the softmax policy
             pert = [logits[a] + gumbel() for a in range(A)]
-            a_cmd, _ = _first_argmax(pert, R)
+            a_cmd, _ = first_argmax(pert)
             # softmax probabilities (stable: subtract the max)
-            _, mx = _first_argmax(logits, R)
+            _, mx = first_argmax(logits)
             exps = [jnp.exp(logits[a] - mx) for a in range(A)]
             z = exps[0]
             for a in range(1, A):
@@ -223,9 +121,8 @@ def make_fused_ac_trainer_rooms(env, num_envs: int, num_steps: int,
             fail = r24() < jnp.int32(int(p_fail * (1 << 24)))
             alt = rbits(A - 1)
             executed = jnp.where(fail, alt + (alt >= a_cmd), a_cmd)
-            d = shuffle(executed, disp_r_[0:1, :])
-            proposed = jnp.clip(agent + d, 0, ncells - 1)
-            oob = bank_gather(proposed, wall_r_, n_wall_rows) == 1
+            proposed = jnp.clip(agent + disp_flat[executed], 0, ncells - 1)
+            oob = is_wall[proposed] == 1
             agent2 = jnp.where(oob, agent, proposed)
             done = agent2 == goal_flat
             rew = jnp.where(
@@ -237,74 +134,48 @@ def make_fused_ac_trainer_rooms(env, num_envs: int, num_steps: int,
             trunc = elapsed > time_limit
 
             # one-step TD error from the pre-reset next state
-            qidx2 = bank_gather(agent2, obs_r_, n_obs_rows)
-            v_next = _q_lookup(v, qidx2, R, 1)[0]
-            v_here = _q_lookup(v, qidx, R, 1)[0]
+            v_next = q_lookup(v, obs_tab[agent2], 1)[0]
+            v_here = q_lookup(v, qidx, 1)[0]
             delta = rew + jnp.float32(gamma_f) * v_next * jnp.where(
                 done, jnp.float32(0.0), jnp.float32(1.0)
             ) - v_here
 
-            lo = qidx & (W - 1)
-            hi0 = qidx >> 7
-            # critic: V[obs] += α_v δ  (value lives in banks 0..3)
-            v = v + scatter_pass(hi0, lo, apv_v * delta)
+            # critic: V[obs] += α_v δ (averaged per visited obs)
+            v = scatter_update(v, qidx, apv * delta, True)
             # actor: θ[obs,a'] += α_π δ (1[a'=a] − π(a'))
             for ap in range(A):
-                wgt = api_v * delta * (
+                wgt = api * delta * (
                     jnp.where(a_cmd == ap, jnp.float32(1.0), jnp.float32(0.0))
                     - probs[ap]
                 )
-                th = th + scatter_pass(ap * NSB + hi0, lo, wgt)
+                th = scatter_update(th, ap * (NSB * W) + qidx, wgt, True)
 
             reset = done | trunc
-            agent3 = jnp.where(reset, sample_agent(), agent2)
+            agent3 = jnp.where(reset, sample_agent(agent), agent2)
             elapsed = jnp.where(reset, 0, elapsed)
             return (th, v, agent3, elapsed, racc + rew)
 
-        zeros = jnp.zeros((R, W), jnp.int32)
-        th, v, agent, _, racc = jax.lax.fori_loop(
-            0, num_steps, body,
-            (th_ref[:], v_ref[:], a_ref[:], zeros,
-             jnp.zeros((R, W), jnp.float32)),
-        )
-        rng.finalize(n_sites)
-        th_out[:] = th
-        v_out[:] = v
-        a_out[:] = agent
-        rew_ref[:] = racc
+        return body
 
-    vspec = pl.BlockSpec(memory_space=pltpu.VMEM)
-    tape_specs = [vspec] if rng_tape else []
-    tape_rows = KernelRNG.tape_rows(n_sites, num_steps, R)
+    tape_shape = (KernelRNG.tape_rows(n_sites, num_steps, R), W)
 
     @jax.jit
     def run(seed, alpha_pi, alpha_v, theta, v, agent, *tape):
-        if rng_tape and tuple(tape[0].shape) != (tape_rows, W):
-            raise ValueError(
-                f"rng tape must have shape {(tape_rows, W)}, got "
-                f"{tuple(tape[0].shape)}"
-            )
-        return pl.pallas_call(
-            kernel,
-            interpret=interpret_mode,
-            in_specs=[pl.BlockSpec(memory_space=pltpu.SMEM)] * 3
-            + [vspec] * 7 + tape_specs,
-            out_specs=(vspec,) * 4,
-            out_shape=(
-                jax.ShapeDtypeStruct((NB, W), jnp.float32),
-                jax.ShapeDtypeStruct((NB, W), jnp.float32),
-                jax.ShapeDtypeStruct((R, W), jnp.int32),
-                jax.ShapeDtypeStruct((R, W), jnp.float32),
-            ),
-            scratch_shapes=[
-                pltpu.VMEM((R, W), jnp.int32),
-                pltpu.VMEM((R, W), jnp.int32),
-                pltpu.VMEM((R, W), jnp.float32),
-            ],
-        )(seed, jnp.asarray(alpha_pi, jnp.float32).reshape(1),
-          jnp.asarray(alpha_v, jnp.float32).reshape(1),
-          theta, v, agent, wall_b, valid_b, obs_b, disp_b, *tape)
+        if rng_tape:
+            check_tape(tape[0], tape_shape)
+        api = jnp.asarray(alpha_pi, jnp.float32).reshape(())
+        apv = jnp.asarray(alpha_v, jnp.float32).reshape(())
+        init = (theta, v, agent, jnp.zeros(agent.shape, jnp.int32),
+                jnp.zeros(agent.shape, jnp.float32))
+        # the generator follows the env layout (the carry's third entry)
+        rng = KernelRNG.for_layout(seed[0], agent.shape, num_steps,
+                                   tape=tape[0] if rng_tape else None)
+        th, v, agent, _, racc = jax.lax.fori_loop(
+            0, num_steps, make_body(rng, api, apv), init
+        )
+        rng.finalize(n_sites)
+        return th, v, agent, racc
 
-    run.tape_shape = (tape_rows, W)
+    run.tape_shape = tape_shape
     run.n_sites = n_sites
     return run

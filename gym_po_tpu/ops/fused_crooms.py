@@ -1,9 +1,9 @@
-"""Pallas fused multi-step continuous-ROOMS rollout.
+"""Fused multi-step continuous-ROOMS rollout.
 
-Float-state member of the fused family: positions/velocities live as f32
-``[R, 128]`` tiles in VMEM; Gaussian action and wall-resample noise are
-generated in-kernel with Box-Muller over the hardware PRNG
-(``z = sqrt(-2 ln u1) * cos(2 pi u2)``, VPU transcendentals).  Dynamics match
+Float-state member of the fused family: positions/velocities are f32
+``[B/128, 128]`` arrays; Gaussian action and wall-resample noise are
+generated in-loop with Box-Muller over the counter generator
+(``z = sqrt(-2 ln u1) * cos(2 pi u2)``).  Dynamics match
 :meth:`CRooms.step_vec` for the continuous ('yx') action type: noisy action
 (+ optional velocity integration), position clip, wall test on the
 discretized cell, in-cell resample on wall hits (one-ULP boundary clamp),
@@ -15,27 +15,17 @@ from __future__ import annotations
 import jax
 import jax.numpy as jnp
 import numpy as np
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
 from ..envs.crooms import MAX_VELOCITY
-from .kernel_rng import KernelRNG
+from .kernel_rng import (
+    KernelRNG, W, check_tape, fused_loop, record_episodes, tiling,
+)
 
 __all__ = ["make_fused_crooms_rollout"]
-
-W = 128
-
-
-def _rows_bank(values: np.ndarray, fill) -> np.ndarray:
-    n_rows = -(-values.size // W)
-    bank = np.full((n_rows, W), fill, values.dtype)
-    bank.reshape(-1)[: values.size] = values
-    return bank
 
 
 def make_fused_crooms_rollout(env, num_envs: int, num_steps: int,
                               rows_per_tile: int = 128,
-                              interpret: bool = False,
                               episode_stats: bool = False,
                               rng_tape: bool = False):
     """Build ``run(seed, py, px, vy, vx, gy, gx) -> (state'..., reward_sums)``.
@@ -43,14 +33,13 @@ def make_fused_crooms_rollout(env, num_envs: int, num_steps: int,
     All six state arrays are f32 ``[num_envs // 128, 128]``.
     Supports ``action_type='yx'`` (the continuous default).
     ``episode_stats=True`` appends per-env completed-episode return/length
-    sums and counts (in-kernel ``RecordEpisodeStatistics`` analogue).
+    sums and counts (in-loop ``RecordEpisodeStatistics`` analogue).
     ``rng_tape=True`` makes ``run`` take a trailing int32 tape argument of
-    shape ``run.tape_shape`` replacing the hardware PRNG (see
-    :mod:`gym_po_tpu.ops.kernel_rng`) — the CPU-testable stochastic path.
+    shape ``run.tape_shape`` replacing the counter generator (see
+    :mod:`gym_po_tpu.ops.kernel_rng`).
     """
     if env.action_type != "yx":
-        raise ValueError("fused crooms kernel supports action_type='yx'")
-    interpret_mode = pltpu.InterpretParams() if interpret else False
+        raise ValueError("fused crooms rollout supports action_type='yx'")
     grid_np = env.grid_np
     H, GW = grid_np.shape
     cs = float(env.cell_size)
@@ -63,64 +52,32 @@ def make_fused_crooms_rollout(env, num_envs: int, num_steps: int,
     pos_hi_y = float(env._pos_hi[0])
     pos_hi_x = float(env._pos_hi[1])
 
-    wall_bank_np = _rows_bank((grid_np.reshape(-1) == -1).astype(np.int32), 1)
-    n_wall_rows = wall_bank_np.shape[0]
-    valid_cells = np.flatnonzero(grid_np.reshape(-1) >= 0).astype(np.int32)
-    n_valid = valid_cells.size
-    valid_bank_np = _rows_bank(valid_cells, 0)
-    n_valid_rows = valid_bank_np.shape[0]
+    is_wall = jnp.asarray((grid_np.reshape(-1) == -1).astype(np.int32))
+    valid_cells_np = np.flatnonzero(grid_np.reshape(-1) >= 0).astype(np.int32)
+    n_valid = valid_cells_np.size
+    valid_cells = jnp.asarray(valid_cells_np)
 
     fixed_goal = env.fixed_goal_coord  # coords (reference cell_size=1 quirk)
     fg = (float(fixed_goal[0]), float(fixed_goal[1])) if fixed_goal is not None else None
     fixed_agent = env.fixed_agent_coord
     fa = (float(fixed_agent[0]), float(fixed_agent[1])) if fixed_agent is not None else None
-
-    if num_envs % W:
-        raise ValueError("num_envs must be a multiple of 128")
-    R = min(rows_per_tile, num_envs // W)
-    if num_envs % (R * W):
-        raise ValueError("num_envs must divide into [rows_per_tile, 128] tiles")
-    grid_n = num_envs // (R * W)
-
-    wall_b = jnp.asarray(wall_bank_np)
-    valid_b = jnp.asarray(valid_bank_np)
+    R, grid_n = tiling(num_envs, rows_per_tile)
 
     # draw sites per step, in body-trace order: ay (uniform + 2-draw
     # normal), ax (same), wall-resample ry/rx normals (2 draws each),
     # goal respawn, agent respawn (fixed spawns consume no draw)
     n_sites = 10 + (0 if fg is not None else 1) + (0 if fa is not None else 1)
 
-    def kernel(seed_ref, py_r, px_r, vy_r, vx_r, gy_r, gx_r, wall_r_, valid_r_,
-               *outs):
-        outs = list(outs)
-        tape_ref = outs.pop(0) if rng_tape else None
-        o_py, o_px, o_vy, o_vx, o_gy, o_gx, rew_ref = outs[:7]
-        stat_refs = outs[7:]  # (ep_ret, ep_len, ep_cnt) when episode_stats
-        rng = KernelRNG(R, num_steps, tape_ref=tape_ref)
-        # large-prime stride keeps tile streams disjoint across nearby seeds
-        rng.seed(seed_ref[0] + pl.program_id(0) * 1000003)
+    def make_body(rng):
         rbits, runiform, rnormal = rng.rbits, rng.runiform, rng.rnormal
 
-        def shuffle(lane_idx, row):
-            return jnp.take_along_axis(
-                jnp.broadcast_to(row, (R, W)), lane_idx, axis=1
-            )
-
-        def bank_gather(idx, bank_ref, n_rows):
-            lane = idx % W
-            row = idx // W
-            out = shuffle(lane, bank_ref[0:1, :])
-            for r in range(1, n_rows):
-                out = jnp.where(row == r, shuffle(lane, bank_ref[r : r + 1, :]), out)
-            return out
-
-        def sample_coords(fixed):
+        def sample_coords(fixed, like):
             if fixed is not None:
                 return (
-                    jnp.full((R, W), fixed[0], jnp.float32),
-                    jnp.full((R, W), fixed[1], jnp.float32),
+                    jnp.full(like.shape, fixed[0], jnp.float32),
+                    jnp.full(like.shape, fixed[1], jnp.float32),
                 )
-            cell = bank_gather(rbits(n_valid), valid_r_, n_valid_rows)
+            cell = valid_cells[rbits(n_valid)]
             # cell center with implicit cell_size=1 (reference quirk,
             # crooms.py:240-244)
             cy = (cell // GW).astype(jnp.float32) + 0.5
@@ -130,7 +87,7 @@ def make_fused_crooms_rollout(env, num_envs: int, num_steps: int,
         def wall_at(y, x):
             cyi = jnp.floor(y / cs).astype(jnp.int32)
             cxi = jnp.floor(x / cs).astype(jnp.int32)
-            return bank_gather(cyi * GW + cxi, wall_r_, n_wall_rows) == 1
+            return is_wall[cyi * GW + cxi] == 1
 
         def body(step, carry):
             py, px, vy, vx, gy, gx, elapsed, racc, stats = carry
@@ -174,17 +131,9 @@ def make_fused_crooms_rollout(env, num_envs: int, num_steps: int,
             trunc = elapsed > time_limit
             reset = done | trunc
             if episode_stats:
-                cur_ret, ep_ret, ep_len, ep_cnt = stats
-                cur_ret = cur_ret + rew
-                ep_ret = jnp.where(reset, ep_ret + cur_ret, ep_ret)
-                ep_len = jnp.where(
-                    reset, ep_len + elapsed.astype(jnp.float32), ep_len
-                )
-                ep_cnt = jnp.where(reset, ep_cnt + 1.0, ep_cnt)
-                cur_ret = jnp.where(reset, 0.0, cur_ret)
-                stats = (cur_ret, ep_ret, ep_len, ep_cnt)
-            ngy, ngx = sample_coords(fg)
-            nay, nax = sample_coords(fa)
+                stats = record_episodes(stats, rew, reset, elapsed)
+            ngy, ngx = sample_coords(fg, gy)
+            nay, nax = sample_coords(fa, py)
             gy2 = jnp.where(reset, ngy, gy)
             gx2 = jnp.where(reset, ngx, gx)
             py3 = jnp.where(reset, nay, py2)
@@ -194,56 +143,24 @@ def make_fused_crooms_rollout(env, num_envs: int, num_steps: int,
             elapsed = jnp.where(reset, 0, elapsed)
             return (py3, px3, vy4, vx4, gy2, gx2, elapsed, racc + rew, stats)
 
-        zi = jnp.zeros((R, W), jnp.int32)
-        zf = jnp.zeros((R, W), jnp.float32)
-        py, px, vy, vx, gy, gx, _, racc, stats = jax.lax.fori_loop(
-            0, num_steps, body,
-            (py_r[:], px_r[:], vy_r[:], vx_r[:], gy_r[:], gx_r[:], zi,
-             zf, (zf, zf, zf, zf)),
-        )
-        rng.finalize(n_sites)
-        o_py[:] = py
-        o_px[:] = px
-        o_vy[:] = vy
-        o_vx[:] = vx
-        o_gy[:] = gy
-        o_gx[:] = gx
-        rew_ref[:] = racc
-        if episode_stats:
-            stat_refs[0][:] = stats[1]
-            stat_refs[1][:] = stats[2]
-            stat_refs[2][:] = stats[3]
+        return body
 
-    spec = pl.BlockSpec((R, W), lambda i: (i, 0), memory_space=pltpu.VMEM)
-    tab = pl.BlockSpec(memory_space=pltpu.VMEM)
-    rows_total = num_envs // W
-    f32 = jax.ShapeDtypeStruct((rows_total, W), jnp.float32)
-    n_out = 7 + (3 if episode_stats else 0)
     slab = KernelRNG.tape_rows(n_sites, num_steps, R)
-    tape_specs = (
-        [pl.BlockSpec((slab, W), lambda i: (i, 0), memory_space=pltpu.VMEM)]
-        if rng_tape else []
-    )
+    tape_shape = (grid_n * slab, W)
 
     @jax.jit
     def run(seed, py, px, vy, vx, gy, gx, *tape):
-        if rng_tape and tuple(tape[0].shape) != (grid_n * slab, W):
-            raise ValueError(
-                f"rng tape must have shape {(grid_n * slab, W)}, got "
-                f"{tuple(tape[0].shape)}"
-            )
-        return pl.pallas_call(
-            kernel,
-            grid=(grid_n,),
-            interpret=interpret_mode,
-            in_specs=[pl.BlockSpec(memory_space=pltpu.SMEM)]
-            + [spec] * 6
-            + [tab] * 2
-            + tape_specs,
-            out_specs=(spec,) * n_out,
-            out_shape=(f32,) * n_out,
-        )(seed, py, px, vy, vx, gy, gx, wall_b, valid_b, *tape)
+        if rng_tape:
+            check_tape(tape[0], tape_shape)
+        zi = jnp.zeros(py.shape, jnp.int32)
+        zf = jnp.zeros(py.shape, jnp.float32)
+        *state, _, racc, stats = fused_loop(
+            make_body, (py, px, vy, vx, gy, gx, zi, zf, (zf,) * 4), seed[0],
+            tape[0] if rng_tape else None,
+            num_steps=num_steps, n_sites=n_sites, R=R,
+        )
+        return (*state, racc) + (stats[1:] if episode_stats else ())
 
-    run.tape_shape = (grid_n * slab, W)
+    run.tape_shape = tape_shape
     run.n_sites = n_sites
     return run

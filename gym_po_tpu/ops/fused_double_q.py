@@ -1,4 +1,4 @@
-"""Pallas fused DOUBLE Q-learning (van Hasselt 2010) for classic Taxi.
+"""Fused DOUBLE Q-learning (van Hasselt 2010) for classic Taxi.
 
 Q-learning's max-bootstrap overestimates under noise; double Q keeps two
 tables and decorrelates selection from evaluation:
@@ -8,35 +8,31 @@ tables and decorrelates selection from evaluation:
     td = r + γ·Q_{1-c}(s', a*) - Q_c(s, a)
     Q_c[s, a] += lr·td
 
-The in-kernel trick: both tables live STACKED in one ``[2·nb, 128]`` VMEM
-tile, so the per-env coin routes the update through the SAME MXU iota-mask
-scatter as the single-table trainer — the coin is just one more bit of the
-scatter's bank index (``hi = c·nb + a·nsb + s>>7``).  Behavior policy is
-epsilon-greedy on Q_A + Q_B (the standard choice).
+Both tables live STACKED in one ``[2·nb, 128]`` array, so the per-env coin
+routes the update through the SAME scatter as the single-table trainer —
+the coin is just one more term of the flat index (``c·nb·128 + a·NSP +
+s``).  Behavior policy is epsilon-greedy on Q_A + Q_B (the standard
+choice).
 
-Same contract as :func:`.fused_qlearning.make_fused_q_trainer` (SMEM
-lr/epsilon scalars, ``average_duplicates``, zero-PRNG-deterministic
-interpret mode: the coin is always A, which still exercises the
-cross-table bootstrap).
+Same contract as :func:`.fused_qlearning.make_fused_q_trainer` (traced
+lr/epsilon scalars, ``average_duplicates``, counter generator or tape).
 """
 
 from __future__ import annotations
 
-import jax
 import jax.numpy as jnp
 import numpy as np
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
 from .fused_qlearning import (
-    NSB,
     W,
-    _first_argmax,
-    _mxu_scatter,
-    _q_lookup,
+    _trainer_run,
     bank_geometry,
+    first_argmax,
+    pick,
+    q_lookup,
+    rows_of,
+    scatter_update,
 )
-from .kernel_rng import KernelRNG
 
 __all__ = ["make_fused_double_q_trainer"]
 
@@ -44,7 +40,6 @@ __all__ = ["make_fused_double_q_trainer"]
 def make_fused_double_q_trainer(env, num_envs: int, num_steps: int,
                                 gamma: float = 0.99,
                                 average_duplicates: bool = True,
-                                interpret: bool = False,
                                 rng_tape: bool = False):
     """Build ``run(seed, lr, epsilon, s, q2) -> (s', q2', reward_sums)``.
 
@@ -52,7 +47,6 @@ def make_fused_double_q_trainer(env, num_envs: int, num_steps: int,
     build with ``np.concatenate([q_to_banks(qa), q_to_banks(qb)])``).
     Classic-map fully-observable taxi.
     """
-    interpret_mode = pltpu.InterpretParams() if interpret else False
     t = env.tables
     nc = t.rows * t.cols
     if nc * 4 > W:
@@ -66,62 +60,29 @@ def make_fused_double_q_trainer(env, num_envs: int, num_steps: int,
     r_goal, r_bad, r_any = env.reward_goal, env.reward_bad, env.reward_any
     if not env._all_cells_valid:
         raise ValueError("double-Q trainer requires all cells navigable")
-    if num_envs % W:
-        raise ValueError("num_envs must be a multiple of 128")
-    R = num_envs // W
-    if R % 8:
-        raise ValueError("num_envs must be a multiple of 1024")
-
-    cm_host = np.asarray(env._cell_move).reshape(nc, 4)
-    cm_bank = np.zeros((1, W), np.int32)
-    cm_bank[0, : nc * 4] = cm_host.reshape(-1)
-    cm = jnp.asarray(cm_bank)
-    la_bank = np.full((1, W), nlocs, np.int32)
-    la_bank[0, :nc] = np.asarray(env._loc_at)
-    la = jnp.asarray(la_bank)
+    R = rows_of(num_envs)
+    cell_move = jnp.asarray(np.asarray(env._cell_move, np.int32).reshape(-1))
+    loc_at = jnp.asarray(np.asarray(env._loc_at, np.int32).reshape(-1))
     gamma_f = float(gamma)
 
     # draw sites per step, in body-trace order: explore r24, random action,
     # table coin, task pn, task d0, reset row, reset col, reset pr, reset dr0
     n_sites = 9
 
-    def kernel(seed_ref, lr_ref, eps_ref, s_ref, q_ref, cm_ref, la_ref,
-               *outs):
-        outs = list(outs)
-        tape_ref = outs.pop(0) if rng_tape else None
-        s_out, q_out, rew_ref, hi_scr, lo_scr, wtd_scr = outs
-        rng = KernelRNG(R, num_steps, tape_ref=tape_ref)
-        rng.seed(seed_ref[0])
+    def make_body(rng, lr, eps):
         rbits, r24 = rng.rbits, rng.r24
-        lr_v = lr_ref[0]
-        eps24 = (eps_ref[0] * jnp.float32(1 << 24)).astype(jnp.int32)
-        cm_b = jnp.broadcast_to(cm_ref[:], (R, W))
-        la_b = jnp.broadcast_to(la_ref[:], (R, W))
-
-        def gather(idx, tab):
-            return jnp.take_along_axis(tab, idx, axis=1)
+        eps24 = (eps * jnp.float32(1 << 24)).astype(jnp.int32)
 
         def halves(q, s):
             """(vals_A, vals_B): per-action lookups in both stacked tables."""
-            va = _q_lookup(q, s, R, 5, nsb)
-            qb = jax.lax.slice(q, (nb, 0), (2 * nb, W))
-            vb = _q_lookup(qb, s, R, 5, nsb)
-            return va, vb
-
-        def pick(vals, a):
-            out = vals[0]
-            for i in range(1, 5):
-                out = jnp.where(a == i, vals[i], out)
-            return out
+            return q_lookup(q[:nb], s, 5, nsb), q_lookup(q[nb:], s, 5, nsb)
 
         def body(step, carry):
             s, q, completed, elapsed, racc = carry
             rng.begin_step(step)
             va, vb = halves(q, s)
             # behavior: eps-greedy on Q_A + Q_B
-            greedy, _ = _first_argmax(
-                [va[i] + vb[i] for i in range(5)], R
-            )
+            greedy, _ = first_argmax([va[i] + vb[i] for i in range(5)])
             explore = r24() < eps24
             a = jnp.where(explore, rbits(5), greedy)
             coin = rbits(2)  # 0: update A, 1: update B
@@ -132,9 +93,9 @@ def make_fused_double_q_trainer(env, num_envs: int, num_steps: int,
             rem = s % pd
             p = rem // nlocs
             d = rem % nlocs
-            moved = gather(rc * 4 + jnp.minimum(a, 3), cm_b)
+            moved = cell_move[rc * 4 + jnp.minimum(a, 3)]
             is_pd = a == 4
-            loc = gather(rc, la_b)
+            loc = loc_at[rc]
             goal = is_pd & (p == nlocs) & (loc == d)
             pickup = is_pd & (p < nlocs) & (loc == p)
             bad = is_pd & (~goal) & (~pickup)
@@ -159,8 +120,8 @@ def make_fused_double_q_trainer(env, num_envs: int, num_steps: int,
             # --- double-Q target: select with the updating table,
             #     evaluate with the other one ---
             va2, vb2 = halves(q, s_mid)
-            a_sel_a, _ = _first_argmax(va2, R)
-            a_sel_b, _ = _first_argmax(vb2, R)
+            a_sel_a, _ = first_argmax(va2)
+            a_sel_b, _ = first_argmax(vb2)
             a_sel = jnp.where(coin == 0, a_sel_a, a_sel_b)
             next_v = jnp.where(coin == 0, pick(vb2, a_sel), pick(va2, a_sel))
             target = rew + jnp.float32(gamma_f) * next_v * jnp.where(
@@ -168,12 +129,9 @@ def make_fused_double_q_trainer(env, num_envs: int, num_steps: int,
             )
             td = target - q_taken
 
-            # one scatter pass over the stacked tile: the coin is a bank bit
-            hi_scr[:] = coin * nb + a * nsb + (s >> 7)
-            lo_scr[:] = s & (W - 1)
-            wtd_scr[:] = lr_v * td
-            q = q + _mxu_scatter(hi_scr, lo_scr, wtd_scr, R,
-                                 average_duplicates, 2 * nb)
+            # one scatter over the stacked tables: the coin picks the half
+            q = scatter_update(q, coin * (nb * W) + a * (nsb * W) + s,
+                               lr * td, average_duplicates)
 
             reset = done | trunc
             rc_new = rbits(rows) * cols + rbits(cols)
@@ -188,46 +146,6 @@ def make_fused_double_q_trainer(env, num_envs: int, num_steps: int,
             s2 = (rc3 * (nlocs + 1) + p4) * nlocs + d4
             return (s2, q, completed, elapsed, racc + rew)
 
-        zeros = jnp.zeros((R, W), jnp.int32)
-        s, q, _, _, racc = jax.lax.fori_loop(
-            0, num_steps, body,
-            (s_ref[:], q_ref[:], zeros, zeros, jnp.zeros((R, W), jnp.float32)),
-        )
-        rng.finalize(n_sites)
-        s_out[:] = s
-        q_out[:] = q
-        rew_ref[:] = racc
+        return body
 
-    vspec = pl.BlockSpec(memory_space=pltpu.VMEM)
-    tape_specs = [vspec] if rng_tape else []
-    tape_rows = KernelRNG.tape_rows(n_sites, num_steps, R)
-
-    @jax.jit
-    def run(seed, lr, epsilon, s, q2, *tape):
-        if rng_tape and tuple(tape[0].shape) != (tape_rows, W):
-            raise ValueError(
-                f"rng tape must have shape {(tape_rows, W)}, got "
-                f"{tuple(tape[0].shape)}"
-            )
-        return pl.pallas_call(
-            kernel,
-            interpret=interpret_mode,
-            in_specs=[pl.BlockSpec(memory_space=pltpu.SMEM)] * 3
-            + [vspec] * 4 + tape_specs,
-            out_specs=(vspec, vspec, vspec),
-            out_shape=(
-                jax.ShapeDtypeStruct((R, W), jnp.int32),
-                jax.ShapeDtypeStruct((2 * nb, W), jnp.float32),
-                jax.ShapeDtypeStruct((R, W), jnp.float32),
-            ),
-            scratch_shapes=[
-                pltpu.VMEM((R, W), jnp.int32),
-                pltpu.VMEM((R, W), jnp.int32),
-                pltpu.VMEM((R, W), jnp.float32),
-            ],
-        )(seed, jnp.asarray(lr, jnp.float32).reshape(1),
-          jnp.asarray(epsilon, jnp.float32).reshape(1), s, q2, cm, la, *tape)
-
-    run.tape_shape = (tape_rows, W)
-    run.n_sites = n_sites
-    return run
+    return _trainer_run(make_body, 2, n_sites, num_steps, R, rng_tape)

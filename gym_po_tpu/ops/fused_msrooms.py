@@ -1,10 +1,10 @@
-"""Pallas fused multi-step Multistory-FourRooms rollout.
+"""Fused multi-step Multistory-FourRooms rollout.
 
-Extends the rooms fused kernel (:mod:`gym_po_tpu.ops.fused_rooms`) with the
+Extends the rooms rollout (:mod:`gym_po_tpu.ops.fused_rooms`) with the
 third dimension: flat cell index over ``[Z, H, W_g]``, stair transit as
 elementwise arithmetic (stair_up cell teleports +floor to the SW square,
 stair_down -floor to the NE square — reference msrooms.py:419-428), and
-separate agent (ground-floor) / goal (top-floor) spawn banks.
+separate agent (ground-floor) / goal (top-floor) spawn tables.
 Dynamics match :meth:`MultistoryFourRooms.step_vec`.
 """
 
@@ -13,27 +13,17 @@ from __future__ import annotations
 import jax
 import jax.numpy as jnp
 import numpy as np
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
 from ..envs.msrooms import DOWNSTAIRS_SW, STAIR_DOWN, STAIR_UP, UPSTAIRS_NE, WALL
-from .kernel_rng import KernelRNG
+from .kernel_rng import (
+    KernelRNG, W, check_tape, fused_loop, record_episodes, tiling,
+)
 
 __all__ = ["make_fused_msrooms_rollout"]
-
-W = 128
-
-
-def _rows_bank(values: np.ndarray, fill: int) -> np.ndarray:
-    n_rows = -(-values.size // W)
-    bank = np.full((n_rows, W), fill, np.int32)
-    bank.reshape(-1)[: values.size] = values
-    return bank
 
 
 def make_fused_msrooms_rollout(env, num_envs: int, num_steps: int,
                                rows_per_tile: int = 128,
-                               interpret: bool = False,
                                episode_stats: bool = False,
                                rng_tape: bool = False):
     """Build ``run(seed, agent, goal) -> (agent', goal', reward_sums)``.
@@ -41,32 +31,27 @@ def make_fused_msrooms_rollout(env, num_envs: int, num_steps: int,
     ``agent``/``goal`` are flat zyx cell indices (``z*H*Wg + y*Wg + x``) laid
     out ``[num_envs // 128, 128]`` int32.
     ``episode_stats=True`` appends per-env completed-episode return/length
-    sums and counts (in-kernel ``RecordEpisodeStatistics`` analogue).
+    sums and counts (in-loop ``RecordEpisodeStatistics`` analogue).
     ``rng_tape=True`` makes ``run`` take a trailing int32 tape argument of
-    shape ``run.tape_shape`` replacing the hardware PRNG (see
-    :mod:`gym_po_tpu.ops.kernel_rng`) — the CPU-testable stochastic path.
+    shape ``run.tape_shape`` replacing the counter generator (see
+    :mod:`gym_po_tpu.ops.kernel_rng`).
     """
-    interpret_mode = pltpu.InterpretParams() if interpret else False
     grid_np = env.grid_np  # [Z, H, Wg], codes {0 wall, 1 room, 2 down, 3 up}
     Z, H, GW = grid_np.shape
     HW = H * GW
     ncells = Z * HW
     A = env.num_actions
     disp = np.asarray(env._actions)  # [A, 3] (dz=0, dy, dx)
-    disp_flat = disp[:, 1] * GW + disp[:, 2]
-    fm = env._cum
-    p_fail = 1.0 - float(fm[0][0])
+    disp_flat = jnp.asarray((disp[:, 1] * GW + disp[:, 2]).astype(np.int32))
+    p_fail = 1.0 - float(env._cum[0][0])
     step_r, wall_r, goal_r = env.step_reward, env.wall_reward, env.goal_reward
     time_limit = env.time_limit
 
-    cell_bank_np = _rows_bank(grid_np.reshape(-1).astype(np.int32), WALL)
-    n_cell_rows = cell_bank_np.shape[0]
-    agent_bank_np = _rows_bank(np.asarray(env.valid_agent_states, np.int32), 0)
-    goal_bank_np = _rows_bank(np.asarray(env.valid_goal_states, np.int32), 0)
-    n_agent = int(np.asarray(env.valid_agent_states).size)
-    n_goal = int(np.asarray(env.valid_goal_states).size)
-    n_agent_rows = agent_bank_np.shape[0]
-    n_goal_rows = goal_bank_np.shape[0]
+    cell_code = jnp.asarray(grid_np.reshape(-1).astype(np.int32))
+    agent_cells = jnp.asarray(np.asarray(env.valid_agent_states, np.int32))
+    goal_cells = jnp.asarray(np.asarray(env.valid_goal_states, np.int32))
+    n_agent = int(agent_cells.size)
+    n_goal = int(goal_cells.size)
 
     fixed_goal = env.fixed_goal_zyx
     fixed_agent = env.fixed_agent_zyx
@@ -82,55 +67,19 @@ def make_fused_msrooms_rollout(env, num_envs: int, num_steps: int,
     )
     sw_flat = DOWNSTAIRS_SW[0] * GW + DOWNSTAIRS_SW[1]
     ne_flat = UPSTAIRS_NE[0] * GW + UPSTAIRS_NE[1]
-
-    if num_envs % W:
-        raise ValueError("num_envs must be a multiple of 128")
-    R = min(rows_per_tile, num_envs // W)
-    if num_envs % (R * W):
-        raise ValueError("num_envs must divide into [rows_per_tile, 128] tiles")
-    grid_n = num_envs // (R * W)
-
-    cell_b = jnp.asarray(cell_bank_np)
-    agent_b = jnp.asarray(agent_bank_np)
-    goal_b = jnp.asarray(goal_bank_np)
-    disp_b = jnp.asarray(_rows_bank(disp_flat.astype(np.int32), 0))
+    R, grid_n = tiling(num_envs, rows_per_tile)
 
     # draw sites per step, in body-trace order: a_cmd, fail coin, alt,
     # goal respawn, agent respawn (fixed spawns consume no draw)
     n_sites = 3 + (0 if fg_flat >= 0 else 1) + (0 if fa_flat >= 0 else 1)
 
-    def kernel(seed_ref, a_ref, g_ref, cell_r, ab_r, gb_r, disp_r, *refs):
-        refs = list(refs)
-        tape_ref = refs.pop(0) if rng_tape else None
-        out_a, out_g, rew_ref = refs[:3]
-        stat_refs = refs[3:]
-        rng = KernelRNG(R, num_steps, tape_ref=tape_ref)
-        # large-prime stride keeps tile streams disjoint across nearby seeds
-        rng.seed(seed_ref[0] + pl.program_id(0) * 1000003)
+    def make_body(rng):
         rbits, runiform = rng.rbits, rng.runiform
 
-        def shuffle(lane_idx, row):
-            return jnp.take_along_axis(
-                jnp.broadcast_to(row, (R, W)), lane_idx, axis=1
-            )
-
-        def bank_gather(idx, bank_ref, n_rows):
-            lane = idx % W
-            row = idx // W
-            out = shuffle(lane, bank_ref[0:1, :])
-            for r in range(1, n_rows):
-                out = jnp.where(row == r, shuffle(lane, bank_ref[r : r + 1, :]), out)
-            return out
-
-        def sample_goal_cell():
-            if fg_flat >= 0:
-                return jnp.full((R, W), fg_flat, jnp.int32)
-            return bank_gather(rbits(n_goal), gb_r, n_goal_rows)
-
-        def sample_agent_cell():
-            if fa_flat >= 0:
-                return jnp.full((R, W), fa_flat, jnp.int32)
-            return bank_gather(rbits(n_agent), ab_r, n_agent_rows)
+        def sample(fixed_flat, cells, n, like):
+            if fixed_flat >= 0:
+                return jnp.full(like.shape, fixed_flat, jnp.int32)
+            return cells[rbits(n)]
 
         def body(step, carry):
             agent, goal, elapsed, racc, stats = carry
@@ -139,13 +88,11 @@ def make_fused_msrooms_rollout(env, num_envs: int, num_steps: int,
             fail = runiform() < jnp.float32(p_fail)
             alt = rbits(A - 1)
             executed = jnp.where(fail, alt + (alt >= a_cmd), a_cmd)
-            d = shuffle(executed, disp_r[0:1, :])
-            proposed = jnp.clip(agent + d, 0, ncells - 1)
-            pcell = bank_gather(proposed, cell_r, n_cell_rows)
-            oob = pcell == WALL
+            proposed = jnp.clip(agent + disp_flat[executed], 0, ncells - 1)
+            oob = cell_code[proposed] == WALL
             agent2 = jnp.where(oob, agent, proposed)
             # stair transit when the agent moved (reference msrooms.py:419-428)
-            acell = bank_gather(agent2, cell_r, n_cell_rows)
+            acell = cell_code[agent2]
             z = agent2 // HW
             go_up = (acell == STAIR_UP) & ~oob
             go_down = (acell == STAIR_DOWN) & ~oob
@@ -161,66 +108,34 @@ def make_fused_msrooms_rollout(env, num_envs: int, num_steps: int,
             trunc = elapsed > time_limit
             reset = done | trunc
             if episode_stats:
-                cur_ret, ep_ret, ep_len, ep_cnt = stats
-                cur_ret = cur_ret + rew
-                ep_ret = jnp.where(reset, ep_ret + cur_ret, ep_ret)
-                ep_len = jnp.where(
-                    reset, ep_len + elapsed.astype(jnp.float32), ep_len
-                )
-                ep_cnt = jnp.where(reset, ep_cnt + 1.0, ep_cnt)
-                cur_ret = jnp.where(reset, 0.0, cur_ret)
-                stats = (cur_ret, ep_ret, ep_len, ep_cnt)
-            goal2 = jnp.where(reset, sample_goal_cell(), goal)
-            agent3 = jnp.where(reset, sample_agent_cell(), agent2)
+                stats = record_episodes(stats, rew, reset, elapsed)
+            goal2 = jnp.where(
+                reset, sample(fg_flat, goal_cells, n_goal, goal), goal
+            )
+            agent3 = jnp.where(
+                reset, sample(fa_flat, agent_cells, n_agent, agent), agent2
+            )
             elapsed = jnp.where(reset, 0, elapsed)
             return (agent3, goal2, elapsed, racc + rew, stats)
 
-        zeros = jnp.zeros((R, W), jnp.int32)
-        zf = jnp.zeros((R, W), jnp.float32)
-        agent, goal, _, racc, stats = jax.lax.fori_loop(
-            0, num_steps, body,
-            (a_ref[:], g_ref[:], zeros, zf, (zf, zf, zf, zf)),
-        )
-        rng.finalize(n_sites)
-        out_a[:] = agent
-        out_g[:] = goal
-        rew_ref[:] = racc
-        if episode_stats:
-            stat_refs[0][:] = stats[1]
-            stat_refs[1][:] = stats[2]
-            stat_refs[2][:] = stats[3]
+        return body
 
-    spec = pl.BlockSpec((R, W), lambda i: (i, 0), memory_space=pltpu.VMEM)
-    tab = pl.BlockSpec(memory_space=pltpu.VMEM)
-    rows_total = num_envs // W
-    i32 = jax.ShapeDtypeStruct((rows_total, W), jnp.int32)
-    f32 = jax.ShapeDtypeStruct((rows_total, W), jnp.float32)
-    n_extra = 3 if episode_stats else 0
     slab = KernelRNG.tape_rows(n_sites, num_steps, R)
-    tape_specs = (
-        [pl.BlockSpec((slab, W), lambda i: (i, 0), memory_space=pltpu.VMEM)]
-        if rng_tape else []
-    )
+    tape_shape = (grid_n * slab, W)
 
     @jax.jit
     def run(seed, agent, goal, *tape):
-        if rng_tape and tuple(tape[0].shape) != (grid_n * slab, W):
-            raise ValueError(
-                f"rng tape must have shape {(grid_n * slab, W)}, got "
-                f"{tuple(tape[0].shape)}"
-            )
-        return pl.pallas_call(
-            kernel,
-            grid=(grid_n,),
-            interpret=interpret_mode,
-            in_specs=[pl.BlockSpec(memory_space=pltpu.SMEM)]
-            + [spec] * 2
-            + [tab] * 4
-            + tape_specs,
-            out_specs=(spec,) * (3 + n_extra),
-            out_shape=(i32, i32, f32) + (f32,) * n_extra,
-        )(seed, agent, goal, cell_b, agent_b, goal_b, disp_b, *tape)
+        if rng_tape:
+            check_tape(tape[0], tape_shape)
+        zi = jnp.zeros(agent.shape, jnp.int32)
+        zf = jnp.zeros(agent.shape, jnp.float32)
+        agent, goal, _, racc, stats = fused_loop(
+            make_body, (agent, goal, zi, zf, (zf,) * 4), seed[0],
+            tape[0] if rng_tape else None,
+            num_steps=num_steps, n_sites=n_sites, R=R,
+        )
+        return (agent, goal, racc) + (stats[1:] if episode_stats else ())
 
-    run.tape_shape = (grid_n * slab, W)
+    run.tape_shape = tape_shape
     run.n_sites = n_sites
     return run

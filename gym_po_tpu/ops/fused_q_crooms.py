@@ -1,20 +1,14 @@
-"""Pallas fused tabular Q-learning on CONTINUOUS-state rooms (CRooms).
+"""Fused tabular Q-learning on CONTINUOUS-state rooms (CRooms).
 
-Completes the in-kernel trainer family (:mod:`.fused_qlearning`,
-:mod:`.fused_ac`) with continuous dynamics: positions are f32 VMEM tiles
+Completes the fused trainer family (:mod:`.fused_qlearning`,
+:mod:`.fused_ac`) with continuous dynamics: positions are f32 arrays
 stepped with the discrete-action CRooms physics (failure-matrix action
 resample, per-component Gaussian action noise via Box-Muller, position
 clip, wall test on the discretized cell, in-cell resample on wall hits —
 reference ``crooms.py:175-331``), while the Q-table is indexed by the
 DISCRETIZED observation (the env's own obs fn evaluated at cell centers,
-any discrete obs model).  Same MXU iota-mask scatter, SMEM lr/epsilon
+any discrete obs model).  Same scatter-add update, traced lr/epsilon
 scalars, and mean-duplicate option as the discrete trainers.
-
-Hardware PRNG → stats-matched; interpret mode is structurally testable
-(zero PRNG keeps every draw deterministic) but float transcendentals make
-a bit-exact NumPy mirror fragile, so correctness rests on free-space
-invariants + hardware learning validation (matching the crooms rollout
-kernel's test strategy).
 """
 
 from __future__ import annotations
@@ -22,12 +16,20 @@ from __future__ import annotations
 import jax
 import jax.numpy as jnp
 import numpy as np
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
 from ..envs.crooms import MAX_VELOCITY
-from .fused_qlearning import NB, NSB, W, _first_argmax, _mxu_scatter, _q_lookup
-from .kernel_rng import KernelRNG
+from .fused_qlearning import (
+    NSB,
+    W,
+    _rooms_common,
+    first_argmax,
+    obs_table,
+    pick,
+    q_lookup,
+    rows_of,
+    scatter_update,
+)
+from .kernel_rng import KernelRNG, check_tape, fused_loop
 
 __all__ = ["make_fused_q_trainer_crooms"]
 
@@ -35,28 +37,20 @@ __all__ = ["make_fused_q_trainer_crooms"]
 def make_fused_q_trainer_crooms(env, num_envs: int, num_steps: int,
                                 gamma: float = 0.99,
                                 average_duplicates: bool = True,
-                                interpret: bool = False,
                                 rng_tape: bool = False):
     """Build ``run(seed, lr, epsilon, py, px, vy, vx, q) ->
     (py', px', vy', vx', q', reward_sums)``.
 
-    Positions/velocities are f32 ``[B//128, 128]`` tiles (pass zero
-    velocity tiles when ``use_velocity`` is off — they ride along
-    untouched); ``q`` is the ``[32, 128]`` banked table.  Requires a
-    discrete ``action_type`` ('cardinal'/'ordinal'), a Discrete obs space,
-    and a fixed goal.
+    Positions/velocities are f32 ``[B//128, 128]`` arrays (pass zero
+    velocities when ``use_velocity`` is off — they ride along untouched);
+    ``q`` is the ``[32, 128]`` banked table.  Requires a discrete
+    ``action_type`` ('cardinal'/'ordinal'), a Discrete obs space, and a
+    fixed goal.
     """
-    from ..core import Discrete
-
-    interpret_mode = pltpu.InterpretParams() if interpret else False
     if env.action_type == "yx":
         raise ValueError("Q trainer needs a discrete action_type "
                          "('cardinal'/'ordinal'), not continuous 'yx'")
-    if not isinstance(env.observation_space, Discrete):
-        raise ValueError("crooms Q trainer needs a Discrete observation space")
-    n_obs = int(env.observation_space.n)
-    if n_obs > 512:
-        raise ValueError(f"n_obs={n_obs} > 512")
+    n_obs, A, p_fail = _rooms_common(env, "crooms Q trainer")
     if env.fixed_goal_coord is None:
         raise ValueError("crooms Q trainer requires a fixed goal")
     grid_np = env.grid_np
@@ -71,62 +65,30 @@ def make_fused_q_trainer_crooms(env, num_envs: int, num_steps: int,
     pos_hi_y = float(env._pos_hi[0])
     pos_hi_x = float(env._pos_hi[1])
     gy_f, gx_f = (float(v) for v in env.fixed_goal_coord)
-    A = int(env.num_actions)
-    if A * NSB > NB:
-        raise ValueError(f"{A} actions exceed the {NB}-row Q bank")
     disp = np.asarray(env._disp, np.float32)  # [A, 2]
-    p_fail = 1.0 - float(env._cum[0][0])
+    disp_y = jnp.asarray(disp[:, 0])
+    disp_x = jnp.asarray(disp[:, 1])
     fixed_agent = env.fixed_agent_coord
     fa = (
         (float(fixed_agent[0]), float(fixed_agent[1]))
         if fixed_agent is not None else None
     )
 
-    def _rows_bank(values: np.ndarray, fill) -> np.ndarray:
-        n_rows = -(-values.size // W)
-        bank = np.full((n_rows, W), fill, values.dtype)
-        bank.reshape(-1)[: values.size] = values
-        return bank
-
     # per-cell observation table via the env's own obs fn at cell centers
+    walls = grid_np.reshape(-1) == -1
     iy, ix = np.divmod(np.arange(H * GW), GW)
     centers = np.stack([(iy + 0.5) * cs, (ix + 0.5) * cs], -1).astype(
         np.float32
     )
-    with jax.default_device(jax.local_devices(backend="cpu")[0]):
-        obs_all = np.asarray(
-            jax.vmap(
-                lambda c: env._obs_fn(
-                    c, jnp.asarray(env.fixed_goal_coord, jnp.float32)
-                )
-            )(jnp.asarray(centers)),
-            np.int64,
-        )
-    obs_tab = np.clip(obs_all, 0, n_obs - 1).astype(np.int32)
-    obs_tab[grid_np.reshape(-1) == -1] = 0
-
-    wall_bank = _rows_bank((grid_np.reshape(-1) == -1).astype(np.int32), np.int32(1))
-    valid_cells = np.flatnonzero(grid_np.reshape(-1) >= 0).astype(np.int32)
-    n_valid = valid_cells.size
-    valid_bank = _rows_bank(valid_cells, np.int32(0))
-    obs_bank = _rows_bank(obs_tab, np.int32(0))
-    dy_bank = np.zeros((1, W), np.float32)
-    dx_bank = np.zeros((1, W), np.float32)
-    dy_bank[0, :A] = disp[:, 0]
-    dx_bank[0, :A] = disp[:, 1]
-    n_wall_rows, n_valid_rows = wall_bank.shape[0], valid_bank.shape[0]
-    n_obs_rows = obs_bank.shape[0]
-    wall_b = jnp.asarray(wall_bank)
-    valid_b = jnp.asarray(valid_bank)
-    obs_b = jnp.asarray(obs_bank)
-    dy_b = jnp.asarray(dy_bank)
-    dx_b = jnp.asarray(dx_bank)
-
-    if num_envs % W:
-        raise ValueError("num_envs must be a multiple of 128")
-    R = num_envs // W
-    if R % 8:
-        raise ValueError("num_envs must be a multiple of 1024")
+    obs_tab = jnp.asarray(obs_table(
+        env, centers, np.asarray(env.fixed_goal_coord, np.float32), n_obs,
+        walls,
+    ))
+    is_wall = jnp.asarray(walls.astype(np.int32))
+    valid_np = np.flatnonzero(~walls).astype(np.int32)
+    n_valid = valid_np.size
+    valid_cells = jnp.asarray(valid_np)
+    R = rows_of(num_envs)
     gamma_f = float(gamma)
 
     # draw sites per step, in body-trace order: explore r24, random action,
@@ -134,45 +96,22 @@ def make_fused_q_trainer_crooms(env, num_envs: int, num_steps: int,
     # normals (2 each), agent respawn (fixed spawn: no draw)
     n_sites = 12 + (0 if fa is not None else 1)
 
-    def kernel(seed_ref, lr_ref, eps_ref, py_r, px_r, vy_r, vx_r, q_ref,
-               wall_r_, valid_r_, obs_r_, dy_r, dx_r, *outs):
-        outs = list(outs)
-        tape_ref = outs.pop(0) if rng_tape else None
-        o_py, o_px, o_vy, o_vx, q_out, rew_ref, hi_scr, lo_scr, wtd_scr = outs
-        rng = KernelRNG(R, num_steps, tape_ref=tape_ref)
-        rng.seed(seed_ref[0])
-        rbits, r24, runiform, rnormal = (rng.rbits, rng.r24, rng.runiform,
-                                         rng.rnormal)
-        lr_v = lr_ref[0]
-        eps24 = (eps_ref[0] * jnp.float32(1 << 24)).astype(jnp.int32)
+    def cell_of(y, x):
+        cyi = jnp.floor(y / cs).astype(jnp.int32)
+        cxi = jnp.floor(x / cs).astype(jnp.int32)
+        return cyi * GW + cxi
 
-        def shuffle(lane_idx, row):
-            return jnp.take_along_axis(
-                jnp.broadcast_to(row, (R, W)), lane_idx, axis=1
-            )
+    def make_body(rng, lr, eps):
+        rbits, r24, rnormal = rng.rbits, rng.r24, rng.rnormal
+        eps24 = (eps * jnp.float32(1 << 24)).astype(jnp.int32)
 
-        def bank_gather(idx, bank_ref, n_rows):
-            lane = idx % W
-            row = idx // W
-            out = shuffle(lane, bank_ref[0:1, :])
-            for r in range(1, n_rows):
-                out = jnp.where(
-                    row == r, shuffle(lane, bank_ref[r : r + 1, :]), out
-                )
-            return out
-
-        def cell_of(y, x):
-            cyi = jnp.floor(y / cs).astype(jnp.int32)
-            cxi = jnp.floor(x / cs).astype(jnp.int32)
-            return cyi * GW + cxi
-
-        def sample_agent_coords():
+        def sample_agent_coords(like):
             if fa is not None:
                 return (
-                    jnp.full((R, W), fa[0], jnp.float32),
-                    jnp.full((R, W), fa[1], jnp.float32),
+                    jnp.full(like.shape, fa[0], jnp.float32),
+                    jnp.full(like.shape, fa[1], jnp.float32),
                 )
-            cell = bank_gather(rbits(n_valid), valid_r_, n_valid_rows)
+            cell = valid_cells[rbits(n_valid)]
             # cell center with implicit cell_size=1 (reference quirk,
             # crooms.py:240-244)
             cy = (cell // GW).astype(jnp.float32) + 0.5
@@ -182,22 +121,20 @@ def make_fused_q_trainer_crooms(env, num_envs: int, num_steps: int,
         def body(step, carry):
             py, px, vy, vx, q, elapsed, racc = carry
             rng.begin_step(step)
-            qidx = bank_gather(cell_of(py, px), obs_r_, n_obs_rows)
-            vals = _q_lookup(q, qidx, R, A)
-            greedy, _ = _first_argmax(vals, R)
+            qidx = obs_tab[cell_of(py, px)]
+            vals = q_lookup(q, qidx, A)
+            greedy, _ = first_argmax(vals)
             explore = r24() < eps24
             a_cmd = jnp.where(explore, rbits(A), greedy)
-            q_taken = vals[0]
-            for i in range(1, A):
-                q_taken = jnp.where(a_cmd == i, vals[i], q_taken)
+            q_taken = pick(vals, a_cmd)
 
             # effective action (reference crooms.py:182-198): failure
             # resample -> displacement -> + Gaussian noise, x power
             fail = r24() < jnp.int32(int(p_fail * (1 << 24)))
             alt = rbits(A - 1)
             executed = jnp.where(fail, alt + (alt >= a_cmd), a_cmd)
-            ay = (shuffle(executed, dy_r[0:1, :]) + rnormal() * std) * power
-            ax = (shuffle(executed, dx_r[0:1, :]) + rnormal() * std) * power
+            ay = (disp_y[executed] + rnormal() * std) * power
+            ax = (disp_x[executed] + rnormal() * std) * power
             if use_vel:
                 vy2 = jnp.clip(vy + ay, -MAX_VELOCITY, MAX_VELOCITY)
                 vx2 = jnp.clip(vx + ax, -MAX_VELOCITY, MAX_VELOCITY)
@@ -209,7 +146,7 @@ def make_fused_q_trainer_crooms(env, num_envs: int, num_steps: int,
                 nx = px + ax
             ny = jnp.clip(ny, 0.0, jnp.float32(pos_hi_y))
             nx = jnp.clip(nx, 0.0, jnp.float32(pos_hi_x))
-            oob = bank_gather(cell_of(ny, nx), wall_r_, n_wall_rows) == 1
+            oob = is_wall[cell_of(ny, nx)] == 1
             ceny = jnp.floor(py / cs) * cs + cs / 2
             cenx = jnp.floor(px / cs) * cs + cs / 2
             hiy = jnp.nextafter(ceny + cs / 2, jnp.float32(0.0))
@@ -232,20 +169,16 @@ def make_fused_q_trainer_crooms(env, num_envs: int, num_steps: int,
             trunc = elapsed > time_limit
 
             # TD target from the pre-reset next observation
-            qidx2 = bank_gather(cell_of(py2, px2), obs_r_, n_obs_rows)
-            _, next_v = _first_argmax(_q_lookup(q, qidx2, R, A), R)
+            _, next_v = first_argmax(q_lookup(q, obs_tab[cell_of(py2, px2)], A))
             target = rew + jnp.float32(gamma_f) * next_v * jnp.where(
                 done, jnp.float32(0.0), jnp.float32(1.0)
             )
             td = target - q_taken
-            hi_scr[:] = a_cmd * NSB + (qidx >> 7)
-            lo_scr[:] = qidx & (W - 1)
-            wtd_scr[:] = lr_v * td
-            q = q + _mxu_scatter(hi_scr, lo_scr, wtd_scr, R,
-                                 average_duplicates)
+            q = scatter_update(q, a_cmd * (NSB * W) + qidx, lr * td,
+                               average_duplicates)
 
             reset = done | trunc
-            nay, nax = sample_agent_coords()
+            nay, nax = sample_agent_coords(py)
             py3 = jnp.where(reset, nay, py2)
             px3 = jnp.where(reset, nax, px2)
             vy4 = jnp.where(reset, 0.0, vy3)
@@ -253,52 +186,25 @@ def make_fused_q_trainer_crooms(env, num_envs: int, num_steps: int,
             elapsed = jnp.where(reset, 0, elapsed)
             return (py3, px3, vy4, vx4, q, elapsed, racc + rew)
 
-        zi = jnp.zeros((R, W), jnp.int32)
-        py, px, vy, vx, q, _, racc = jax.lax.fori_loop(
-            0, num_steps, body,
-            (py_r[:], px_r[:], vy_r[:], vx_r[:], q_ref[:], zi,
-             jnp.zeros((R, W), jnp.float32)),
-        )
-        rng.finalize(n_sites)
-        o_py[:] = py
-        o_px[:] = px
-        o_vy[:] = vy
-        o_vx[:] = vx
-        q_out[:] = q
-        rew_ref[:] = racc
+        return body
 
-    vspec = pl.BlockSpec(memory_space=pltpu.VMEM)
-    f32 = jax.ShapeDtypeStruct((R, W), jnp.float32)
-    tape_specs = [vspec] if rng_tape else []
-    tape_rows = KernelRNG.tape_rows(n_sites, num_steps, R)
+    tape_shape = (KernelRNG.tape_rows(n_sites, num_steps, R), W)
 
     @jax.jit
     def run(seed, lr, epsilon, py, px, vy, vx, q, *tape):
-        if rng_tape and tuple(tape[0].shape) != (tape_rows, W):
-            raise ValueError(
-                f"rng tape must have shape {(tape_rows, W)}, got "
-                f"{tuple(tape[0].shape)}"
-            )
-        return pl.pallas_call(
-            kernel,
-            interpret=interpret_mode,
-            in_specs=[pl.BlockSpec(memory_space=pltpu.SMEM)] * 3
-            + [vspec] * 10 + tape_specs,
-            out_specs=(vspec,) * 6,
-            out_shape=(
-                f32, f32, f32, f32,
-                jax.ShapeDtypeStruct((NB, W), jnp.float32),
-                f32,
-            ),
-            scratch_shapes=[
-                pltpu.VMEM((R, W), jnp.int32),
-                pltpu.VMEM((R, W), jnp.int32),
-                pltpu.VMEM((R, W), jnp.float32),
-            ],
-        )(seed, jnp.asarray(lr, jnp.float32).reshape(1),
-          jnp.asarray(epsilon, jnp.float32).reshape(1),
-          py, px, vy, vx, q, wall_b, valid_b, obs_b, dy_b, dx_b, *tape)
+        if rng_tape:
+            check_tape(tape[0], tape_shape)
+        lr = jnp.asarray(lr, jnp.float32).reshape(())
+        eps = jnp.asarray(epsilon, jnp.float32).reshape(())
+        init = (py, px, vy, vx, q, jnp.zeros(py.shape, jnp.int32),
+                jnp.zeros(py.shape, jnp.float32))
+        out = fused_loop(
+            lambda rng: make_body(rng, lr, eps), init, seed[0],
+            tape[0] if rng_tape else None, num_steps=num_steps,
+            n_sites=n_sites,
+        )
+        return out[:5] + (out[-1],)
 
-    run.tape_shape = (tape_rows, W)
+    run.tape_shape = tape_shape
     run.n_sites = n_sites
     return run

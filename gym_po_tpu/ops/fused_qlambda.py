@@ -1,4 +1,4 @@
-"""Pallas fused Watkins Q(λ): eligibility-trace credit assignment in-kernel.
+"""Fused Watkins Q(λ): eligibility-trace credit assignment in one loop.
 
 Third algorithm family member after one-step Q (:mod:`.fused_qlearning`)
 and actor-critic (:mod:`.fused_ac`).  Backward-view TD(λ) propagates each
@@ -8,16 +8,14 @@ assignment horizon from O(1/(1-γ)) sweeps to one:
     δ_t = r + γ·max_a Q(s',a)·(1-done) - Q(s_t,a_t)
     Q[s_{t-k}, a_{t-k}] += lr · (γλ)^k · δ_t      for k = 0..L-1
 
-The classic obstruction to batching this on accelerators is the trace
-tensor: a faithful per-env eligibility trace is ``[B, ns, A]`` (82 MB at
-B=8192 on taxi) — nowhere near VMEM.  The kernel instead keeps the
-TRUNCATED trace implicitly, as a ring buffer of the last ``L`` visited
-``(hi, lo)`` table addresses per env (``2·L·[R,128]`` int32 scratch), and
-materializes each step's L-deep update as ONE combined MXU iota-mask
-scatter over ``[L·R, 128]`` operand tiles — the same
-:func:`.fused_qlearning._mxu_scatter` machinery, L× the rows.  Stale or
-cut ring entries are masked by writing bank index ``-1`` (the iota compare
-then zeroes both the update AND the duplicate count).
+The classic obstruction to batching this is the trace tensor: a faithful
+per-env eligibility trace is ``[B, ns, A]`` (82 MB at B=8192 on taxi).
+The trainer instead keeps the TRUNCATED trace implicitly, as a ring buffer
+of the last ``L`` visited table addresses per env (``[L, rows, 128]``
+int32), and applies each step's L-deep update as ONE combined scatter-add
+over ``L·B`` entries (:func:`.fused_qlearning.trace_scatter_args`).  Stale
+or cut ring entries are dropped from both the update AND the duplicate
+count.
 
 Truncation at L is exact for (γλ)^k weights below f32 resolution anyway
 (L=16 at γλ=0.45 is ~3e-6); Watkins' variant cuts the prior trace BEFORE
@@ -26,24 +24,34 @@ exploratory step's δ reaches only the current pair), keeping effective
 trace runs short under meaningful epsilon.  λ=0 reduces bit-exactly to
 the one-step trainer (tested).
 
-Same contract as the rest of the family: SMEM lr/epsilon scalars (schedules
-reuse one executable), hardware PRNG or injected tape (``rng_tape=True``,
-bit-exact CPU oracle tests), ROOMS with a fixed goal and any discrete
-observation model via the host-precomputed per-cell obs table.  Traces do
-not span chunk boundaries (the age counter starts at zero each ``run``
-call) — with chunk_steps in the thousands the loss is negligible.
+Same contract as the rest of the family: traced lr/epsilon scalars
+(schedules reuse one executable), counter generator or injected tape
+(``rng_tape=True``, bit-exact CPU oracle tests), ROOMS with a fixed goal
+and any discrete observation model via the host-precomputed per-cell obs
+table.  Traces do not span chunk boundaries (the age counter starts at
+zero each ``run`` call) — with chunk_steps in the thousands the loss is
+negligible.
 """
 
 from __future__ import annotations
 
-import jax
 import jax.numpy as jnp
 import numpy as np
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
-from .fused_qlearning import NB, NSB, W, _first_argmax, _mxu_scatter, _q_lookup
-from .kernel_rng import KernelRNG
+from .fused_qlearning import (
+    NSB,
+    W,
+    _rooms_common,
+    _trainer_run,
+    first_argmax,
+    obs_table,
+    pick,
+    q_lookup,
+    rows_of,
+    scatter_update,
+    trace_scatter_args,
+    trace_weights,
+)
 
 __all__ = ["make_fused_qlambda_trainer_rooms"]
 
@@ -54,13 +62,12 @@ def make_fused_qlambda_trainer_rooms(env, num_envs: int, num_steps: int,
                                      trace_len: int = 8,
                                      average_duplicates: bool = False,
                                      watkins_cut: bool = True,
-                                     interpret: bool = False,
                                      rng_tape: bool = False):
     """Build ``run(seed, lr, epsilon, agent, q) -> (agent', q', reward_sums)``.
 
     ``lam``/``trace_len`` are compile-time (the (γλ)^k weights are baked
-    constants); lr/epsilon are SMEM runtime scalars.  ``watkins_cut=True``
-    clears the prior trace before the update at non-greedy-valued actions
+    constants); lr/epsilon are traced scalars.  ``watkins_cut=True`` clears
+    the prior trace before the update at non-greedy-valued actions
     (Watkins' Q(λ) — keeps the off-policy max-bootstrap sound); ``False``
     gives Peng-style naive Q(λ), which propagates every δ through the full
     trace (biased off-policy, often stronger in practice under exploration).
@@ -69,30 +76,19 @@ def make_fused_qlambda_trainer_rooms(env, num_envs: int, num_steps: int,
     invariant steps); the default sums, which is the textbook accumulating-
     trace semantics within each env.
     """
-    from ..core import Discrete
-
-    interpret_mode = pltpu.InterpretParams() if interpret else False
-    if not isinstance(env.observation_space, Discrete):
-        raise ValueError("Q(λ) trainer needs a Discrete observation space")
-    n_obs = int(env.observation_space.n)
-    if n_obs > 512:
-        raise ValueError(f"n_obs={n_obs} > 512: Q banks would exceed 32 rows")
+    n_obs, A, p_fail = _rooms_common(env, "Q(λ) trainer")
     if env.fixed_goal_yx is None:
         raise ValueError("Q(λ) trainer requires a fixed goal")
     if not 1 <= int(trace_len) <= 64:
         raise ValueError(f"trace_len={trace_len} out of range [1, 64]")
     if not 0.0 <= float(lam) <= 1.0:
         raise ValueError(f"lam={lam} out of range [0, 1]")
-    L = int(trace_len)
+    L, coefs = trace_weights(gamma, lam, trace_len)
     grid_np = env.grid_np
     H, GW = grid_np.shape
     ncells = H * GW
-    A = int(env.num_actions)
-    if A * NSB > NB:
-        raise ValueError(f"{A} actions exceed the {NB}-row Q bank")
     disp = np.asarray(env._actions)
-    disp_flat = (disp[:, 0] * GW + disp[:, 1]).astype(np.int32)
-    p_fail = 1.0 - float(env._cum[0][0])
+    disp_flat = jnp.asarray((disp[:, 0] * GW + disp[:, 1]).astype(np.int32))
     step_r, wall_r, goal_r = env.step_reward, env.wall_reward, env.goal_reward
     time_limit = int(env.time_limit)
     goal_flat = int(env.fixed_goal_yx[0] * GW + env.fixed_goal_yx[1])
@@ -101,98 +97,40 @@ def make_fused_qlambda_trainer_rooms(env, num_envs: int, num_steps: int,
         int(fixed_agent[0] * GW + fixed_agent[1])
         if fixed_agent is not None else -1
     )
-    # (γλ)^k trace weights, baked as f32 constants; statically truncate
-    # where the weight is exactly zero (λ=0 then reduces BIT-exactly to the
-    # one-step trainer: a single R-row scatter, same duplicate counts)
-    coefs = [np.float32((float(gamma) * float(lam)) ** k) for k in range(L)]
-    L = max(k for k, c in enumerate(coefs) if float(c) != 0.0) + 1
-    coefs = coefs[:L]
-
-    def _rows_bank(values: np.ndarray, fill: int) -> np.ndarray:
-        n_rows = -(-values.size // W)
-        bank = np.full((n_rows, W), fill, np.int32)
-        bank.reshape(-1)[: values.size] = values
-        return bank
-
-    # per-cell observation table via the env's own obs fn (host, once)
+    walls = grid_np.reshape(-1) == -1
     cells_yx = np.stack(np.divmod(np.arange(ncells), GW), -1).astype(np.int32)
-    with jax.default_device(jax.local_devices(backend="cpu")[0]):
-        obs_all = np.asarray(
-            jax.vmap(
-                lambda yx: env._obs_fn(yx, jnp.asarray(env.fixed_goal_yx))
-            )(jnp.asarray(cells_yx)),
-            np.int64,
-        )
-    obs_tab = np.clip(obs_all, 0, n_obs - 1).astype(np.int32)
-    obs_tab[grid_np.reshape(-1) == -1] = 0
-
-    wall_bank = _rows_bank((grid_np.reshape(-1) == -1).astype(np.int32), 1)
-    valid_cells = np.flatnonzero(grid_np.reshape(-1) >= 0).astype(np.int32)
-    n_valid = valid_cells.size
-    valid_bank = _rows_bank(valid_cells, 0)
-    obs_bank = _rows_bank(obs_tab, 0)
-    disp_bank = _rows_bank(disp_flat, 0)
-    n_wall_rows, n_valid_rows = wall_bank.shape[0], valid_bank.shape[0]
-    n_obs_rows = obs_bank.shape[0]
-    wall_b = jnp.asarray(wall_bank)
-    valid_b = jnp.asarray(valid_bank)
-    obs_b = jnp.asarray(obs_bank)
-    disp_b = jnp.asarray(disp_bank)
-
-    if num_envs % W:
-        raise ValueError("num_envs must be a multiple of 128")
-    R = num_envs // W
-    if R % 8:
-        raise ValueError("num_envs must be a multiple of 1024")
+    obs_tab = jnp.asarray(
+        obs_table(env, cells_yx, env.fixed_goal_yx, n_obs, walls)
+    )
+    is_wall = jnp.asarray(walls.astype(np.int32))
+    valid_np = np.flatnonzero(~walls).astype(np.int32)
+    n_valid = valid_np.size
+    valid_cells = jnp.asarray(valid_np)
+    R = rows_of(num_envs)
     gamma_f = float(gamma)
 
     # draw sites per step, in body-trace order: explore r24, random action,
     # failure r24, alt action, agent respawn (fixed spawn: no draw)
     n_sites = 4 + (0 if fixed_agent_flat >= 0 else 1)
 
-    def kernel(seed_ref, lr_ref, eps_ref, a_ref, q_ref,
-               wall_r_, valid_r_, obs_r_, disp_r_, *outs):
-        outs = list(outs)
-        tape_ref = outs.pop(0) if rng_tape else None
-        (a_out, q_out, rew_ref,
-         hh_scr, hl_scr, sc_hi, sc_lo, sc_w) = outs
-        rng = KernelRNG(R, num_steps, tape_ref=tape_ref)
-        rng.seed(seed_ref[0])
+    def make_body(rng, lr, eps):
         rbits, r24 = rng.rbits, rng.r24
-        lr_v = lr_ref[0]
-        eps24 = (eps_ref[0] * jnp.float32(1 << 24)).astype(jnp.int32)
+        eps24 = (eps * jnp.float32(1 << 24)).astype(jnp.int32)
 
-        def shuffle(lane_idx, row):
-            return jnp.take_along_axis(
-                jnp.broadcast_to(row, (R, W)), lane_idx, axis=1
-            )
-
-        def bank_gather(idx, bank_ref, n_rows):
-            lane = idx % W
-            row = idx // W
-            out = shuffle(lane, bank_ref[0:1, :])
-            for r in range(1, n_rows):
-                out = jnp.where(
-                    row == r, shuffle(lane, bank_ref[r : r + 1, :]), out
-                )
-            return out
-
-        def sample_agent():
+        def sample_agent(like):
             if fixed_agent_flat >= 0:
-                return jnp.full((R, W), fixed_agent_flat, jnp.int32)
-            return bank_gather(rbits(n_valid), valid_r_, n_valid_rows)
+                return jnp.full(like.shape, fixed_agent_flat, jnp.int32)
+            return valid_cells[rbits(n_valid)]
 
         def body(step, carry):
-            agent, q, age, elapsed, racc = carry
+            agent, q, age, elapsed, ring, racc = carry
             rng.begin_step(step)
-            qidx = bank_gather(agent, obs_r_, n_obs_rows)
-            vals = _q_lookup(q, qidx, R, A)
-            greedy, best_v = _first_argmax(vals, R)
+            qidx = obs_tab[agent]
+            vals = q_lookup(q, qidx, A)
+            greedy, best_v = first_argmax(vals)
             explore = r24() < eps24
             a_cmd = jnp.where(explore, rbits(A), greedy)
-            q_taken = vals[0]
-            for i in range(1, A):
-                q_taken = jnp.where(a_cmd == i, vals[i], q_taken)
+            q_taken = pick(vals, a_cmd)
 
             # Watkins cut BEFORE the update: an exploratory step's δ is an
             # off-greedy-policy error — it must reach only the CURRENT pair,
@@ -208,9 +146,8 @@ def make_fused_qlambda_trainer_rooms(env, num_envs: int, num_steps: int,
             fail = r24() < jnp.int32(int(p_fail * (1 << 24)))
             alt = rbits(A - 1)
             executed = jnp.where(fail, alt + (alt >= a_cmd), a_cmd)
-            d = shuffle(executed, disp_r_[0:1, :])
-            proposed = jnp.clip(agent + d, 0, ncells - 1)
-            oob = bank_gather(proposed, wall_r_, n_wall_rows) == 1
+            proposed = jnp.clip(agent + disp_flat[executed], 0, ncells - 1)
+            oob = is_wall[proposed] == 1
             agent2 = jnp.where(oob, agent, proposed)
             done = agent2 == goal_flat
             rew = jnp.where(
@@ -222,89 +159,28 @@ def make_fused_qlambda_trainer_rooms(env, num_envs: int, num_steps: int,
             trunc = elapsed > time_limit
 
             # δ from the pre-reset next state (off-policy max bootstrap)
-            qidx2 = bank_gather(agent2, obs_r_, n_obs_rows)
-            _, next_v = _first_argmax(_q_lookup(q, qidx2, R, A), R)
+            _, next_v = first_argmax(q_lookup(q, obs_tab[agent2], A))
             target = rew + jnp.float32(gamma_f) * next_v * jnp.where(
                 done, jnp.float32(0.0), jnp.float32(1.0)
             )
             td = target - q_taken
 
-            # ring-write the current pair; bump the valid-trace age counter
-            slot_w = jax.lax.rem(step, L)
-            hh_scr[pl.ds(slot_w * R, R), :] = a_cmd * NSB + (qidx >> 7)
-            hl_scr[pl.ds(slot_w * R, R), :] = qidx & (W - 1)
-            age = jnp.minimum(age + 1, L)
-
-            # one combined L·R-row scatter: age-k block reads ring slot
-            # (step-k) mod L with baked (γλ)^k weight; entries past the
-            # trace cut mask to bank -1 (zero update AND zero count)
-            wd = lr_v * td
-            for k in range(L):
-                slot_r = jax.lax.rem(step - k + L, L)
-                hi_k = hh_scr[pl.ds(slot_r * R, R), :]
-                lo_k = hl_scr[pl.ds(slot_r * R, R), :]
-                live = k < age
-                sc_hi[k * R : (k + 1) * R, :] = jnp.where(live, hi_k, -1)
-                sc_lo[k * R : (k + 1) * R, :] = lo_k
-                sc_w[k * R : (k + 1) * R, :] = jnp.where(
-                    live, coefs[k] * wd, jnp.float32(0.0)
-                )
-            q = q + _mxu_scatter(sc_hi, sc_lo, sc_w, L * R,
-                                 average_duplicates)
+            # ring-write the current pair, then one combined L·B scatter
+            ring, age, idx, w, live = trace_scatter_args(
+                ring, age, step, a_cmd * (NSB * W) + qidx, lr * td, coefs
+            )
+            q = scatter_update(q, idx, w, average_duplicates, live)
 
             # episode cut (the Watkins cut already happened pre-update)
             reset = done | trunc
             age = jnp.where(reset, 0, age)
-            agent3 = jnp.where(reset, sample_agent(), agent2)
+            agent3 = jnp.where(reset, sample_agent(agent), agent2)
             elapsed = jnp.where(reset, 0, elapsed)
-            return (agent3, q, age, elapsed, racc + rew)
+            return (agent3, q, age, elapsed, ring, racc + rew)
 
-        zeros = jnp.zeros((R, W), jnp.int32)
-        agent, q, _, _, racc = jax.lax.fori_loop(
-            0, num_steps, body,
-            (a_ref[:], q_ref[:], zeros, zeros,
-             jnp.zeros((R, W), jnp.float32)),
-        )
-        rng.finalize(n_sites)
-        a_out[:] = agent
-        q_out[:] = q
-        rew_ref[:] = racc
+        return body
 
-    vspec = pl.BlockSpec(memory_space=pltpu.VMEM)
-    tape_specs = [vspec] if rng_tape else []
-    tape_rows = KernelRNG.tape_rows(n_sites, num_steps, R)
-
-    @jax.jit
-    def run(seed: jax.Array, lr: jax.Array, epsilon: jax.Array,
-            agent: jax.Array, q: jax.Array, *tape):
-        if rng_tape and tuple(tape[0].shape) != (tape_rows, W):
-            raise ValueError(
-                f"rng tape must have shape {(tape_rows, W)}, got "
-                f"{tuple(tape[0].shape)}"
-            )
-        return pl.pallas_call(
-            kernel,
-            interpret=interpret_mode,
-            in_specs=[pl.BlockSpec(memory_space=pltpu.SMEM)] * 3
-            + [vspec] * 6 + tape_specs,
-            out_specs=(vspec, vspec, vspec),
-            out_shape=(
-                jax.ShapeDtypeStruct((R, W), jnp.int32),
-                jax.ShapeDtypeStruct((NB, W), jnp.float32),
-                jax.ShapeDtypeStruct((R, W), jnp.float32),
-            ),
-            scratch_shapes=[
-                pltpu.VMEM((L * R, W), jnp.int32),   # ring: bank hi
-                pltpu.VMEM((L * R, W), jnp.int32),   # ring: lane lo
-                pltpu.VMEM((L * R, W), jnp.int32),   # scatter hi
-                pltpu.VMEM((L * R, W), jnp.int32),   # scatter lo
-                pltpu.VMEM((L * R, W), jnp.float32),  # scatter weights
-            ],
-        )(seed, jnp.asarray(lr, jnp.float32).reshape(1),
-          jnp.asarray(epsilon, jnp.float32).reshape(1), agent, q,
-          wall_b, valid_b, obs_b, disp_b, *tape)
-
-    run.tape_shape = (tape_rows, W)
-    run.n_sites = n_sites
+    run = _trainer_run(make_body, 2, n_sites, num_steps, R, rng_tape,
+                       ring_len=L)
     run.trace_len = L
     return run

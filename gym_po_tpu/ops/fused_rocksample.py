@@ -1,19 +1,19 @@
-"""Pallas fused multi-step RockSample rollout.
+"""Fused multi-step RockSample rollout.
 
-Same VMEM-resident design as the taxi/rooms fused kernels.  RockSample's
-per-env state packs exactly into two int32 lanes:
+Same design as the taxi/rooms fused rollouts.  RockSample's per-env state
+packs exactly into two int32 lanes:
 
 * ``pos``  — flat cell index (y * cols + x);
 * ``mask`` — rock-quality bitmask (bit i set = rock i is good), so sampling
   a rock is one AND/ANDN and an episode reset is one draw of k random bits.
 
-Lookups (rock-at-cell, rock coordinates) are 128-lane bank shuffles;
-movement, the exit-east terminal, the sensor accuracy
-``eta = 0.5 * (1 + 2^(-d/d0))`` (VPU ``exp2``/``sqrt``), and all rewards are
-elementwise.  Dynamics match :meth:`RockSample.step_vec`; the observation
-(reading) is not materialized — rollout-only, like the other fused kernels.
+Lookups (rock-at-cell, rock coordinates) are flat tables; movement, the
+exit-east terminal, the sensor accuracy ``eta = 0.5 * (1 + 2^(-d/d0))``,
+and all rewards are elementwise.  Dynamics match
+:meth:`RockSample.step_vec`; the observation (reading) is not materialized
+— rollout-only, like the other fused rollouts.
 
-Requires ``num_rocks <= 30`` (int32 bitmask) and ``rows*cols <= 128``.
+Requires ``num_rocks <= 30`` (int32 bitmask).
 """
 
 from __future__ import annotations
@@ -21,8 +21,6 @@ from __future__ import annotations
 import jax
 import jax.numpy as jnp
 import numpy as np
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
 from ..envs.rocksample import (
     BAD_PENALTY,
@@ -30,16 +28,15 @@ from ..envs.rocksample import (
     GOOD_REWARD,
     ILLEGAL_SAMPLE_PENALTY,
 )
-from .kernel_rng import KernelRNG
+from .kernel_rng import (
+    KernelRNG, W, check_tape, fused_loop, record_episodes, tiling,
+)
 
 __all__ = ["make_fused_rocksample_rollout"]
-
-W = 128
 
 
 def make_fused_rocksample_rollout(env, num_envs: int, num_steps: int,
                                   rows_per_tile: int = 128,
-                                  interpret: bool = False,
                                   episode_stats: bool = False,
                                   rng_tape: bool = False):
     """Build ``run(seed, pos, mask) -> (pos', mask', reward_sums)``.
@@ -47,62 +44,37 @@ def make_fused_rocksample_rollout(env, num_envs: int, num_steps: int,
     ``pos`` is the flat cell index and ``mask`` the rock-quality bitmask,
     both int32 ``[num_envs // 128, 128]``.
     ``episode_stats=True`` appends per-env completed-episode return/length
-    sums and counts (in-kernel ``RecordEpisodeStatistics`` analogue).
+    sums and counts (in-loop ``RecordEpisodeStatistics`` analogue).
     ``rng_tape=True`` makes ``run`` take a trailing int32 tape argument of
-    shape ``run.tape_shape`` replacing the hardware PRNG (see
-    :mod:`gym_po_tpu.ops.kernel_rng`) — the CPU-testable stochastic path.
+    shape ``run.tape_shape`` replacing the counter generator (see
+    :mod:`gym_po_tpu.ops.kernel_rng`).
     """
-    interpret_mode = pltpu.InterpretParams() if interpret else False
     rows, cols, k = env.rows, env.cols, env.k
-    ncells = rows * cols
-    if ncells > W:
-        raise ValueError(f"map has {ncells} cells; fused kernel supports <= {W}")
     if k > 30:
-        raise ValueError("fused kernel packs rock quality into int32: k <= 30")
+        raise ValueError("fused rollout packs rock quality into int32: k <= 30")
     d0 = env.d0
     time_limit = env.time_limit
     n_actions = 5 + k
-    init_flat = int(env.rock_positions_np[0, 0]) * 0  # placeholder
     init_flat = int(np.asarray(env._init_pos)[0]) * cols + int(
         np.asarray(env._init_pos)[1]
     )
 
-    # banks: rock index at cell (k = sentinel), rock y, rock x
-    rock_at = np.full((1, W), k, np.int32)
+    # tables: rock index at cell (k = sentinel), rock y, rock x
     rp = env.rock_positions_np
-    rock_at[0, rp[:, 0] * cols + rp[:, 1]] = np.arange(k)
-    ry = np.zeros((1, W), np.int32)
-    rx = np.zeros((1, W), np.int32)
-    ry[0, :k] = rp[:, 0]
-    rx[0, :k] = rp[:, 1]
-    rock_at_b, ry_b, rx_b = (jnp.asarray(a) for a in (rock_at, ry, rx))
-
-    if num_envs % W:
-        raise ValueError("num_envs must be a multiple of 128")
-    R = min(rows_per_tile, num_envs // W)
-    if num_envs % (R * W):
-        raise ValueError("num_envs must divide into [rows_per_tile, 128] tiles")
-    grid_n = num_envs // (R * W)
+    rock_at_np = np.full((rows * cols,), k, np.int32)
+    rock_at_np[rp[:, 0] * cols + rp[:, 1]] = np.arange(k)
+    rock_at = jnp.asarray(rock_at_np)
+    rock_y = jnp.asarray(rp[:, 0].astype(np.int32))
+    rock_x = jnp.asarray(rp[:, 1].astype(np.int32))
+    R, grid_n = tiling(num_envs, rows_per_tile)
     full_mask = (1 << k) - 1
 
     # draw sites per step, in body-trace order: action, sensor uniform,
     # reset rock-quality mask
     n_sites = 3
 
-    def kernel(seed_ref, pos_ref, mask_ref, ra_r, ry_r, rx_r, *refs):
-        refs = list(refs)
-        tape_ref = refs.pop(0) if rng_tape else None
-        out_pos, out_mask, rew_ref = refs[:3]
-        stat_refs = refs[3:]
-        rng = KernelRNG(R, num_steps, tape_ref=tape_ref)
-        # large-prime stride keeps tile streams disjoint across nearby seeds
-        rng.seed(seed_ref[0] + pl.program_id(0) * 1000003)
+    def make_body(rng):
         rbits, runiform = rng.rbits, rng.runiform
-
-        def shuffle(idx, row_ref):
-            return jnp.take_along_axis(
-                jnp.broadcast_to(row_ref[:], (R, W)), idx, axis=1
-            )
 
         def body(step, carry):
             pos, mask, elapsed, racc, stats = carry
@@ -120,7 +92,7 @@ def make_fused_rocksample_rollout(env, num_envs: int, num_steps: int,
             inside = (ny >= 0) & (ny < rows) & (nx >= 0) & (nx < cols)
             pos2 = jnp.where(inside, ny * cols + nx, pos)
             # sampling via the rock bitmask
-            ridx_here = shuffle(pos, ra_r)  # rock at CURRENT cell or k
+            ridx_here = rock_at[pos]  # rock at CURRENT cell or k
             on_rock = ridx_here < k
             here_bit = (mask >> jnp.minimum(ridx_here, k - 1)) & 1
             is_sample = a == 4
@@ -138,8 +110,8 @@ def make_fused_rocksample_rollout(env, num_envs: int, num_steps: int,
             # sensing consumes a uniform every step (fixed-shape), result
             # unused in rollout; matches step_vec's draw structure
             ridx_chk = jnp.clip(a - 5, 0, k - 1)
-            cy = shuffle(ridx_chk, ry_r).astype(jnp.float32)
-            cx = shuffle(ridx_chk, rx_r).astype(jnp.float32)
+            cy = rock_y[ridx_chk].astype(jnp.float32)
+            cx = rock_x[ridx_chk].astype(jnp.float32)
             fy = y.astype(jnp.float32) - cy
             fx = x.astype(jnp.float32) - cx
             dist = jnp.sqrt(fy * fy + fx * fx)
@@ -154,67 +126,31 @@ def make_fused_rocksample_rollout(env, num_envs: int, num_steps: int,
             trunc = elapsed >= time_limit
             reset = exited | trunc
             if episode_stats:
-                cur_ret, ep_ret, ep_len, ep_cnt = stats
-                cur_ret = cur_ret + rew
-                ep_ret = jnp.where(reset, ep_ret + cur_ret, ep_ret)
-                ep_len = jnp.where(
-                    reset, ep_len + elapsed.astype(jnp.float32), ep_len
-                )
-                ep_cnt = jnp.where(reset, ep_cnt + 1.0, ep_cnt)
-                cur_ret = jnp.where(reset, 0.0, cur_ret)
-                stats = (cur_ret, ep_ret, ep_len, ep_cnt)
+                stats = record_episodes(stats, rew, reset, elapsed)
             new_mask = rbits(full_mask + 1)
             pos3 = jnp.where(reset, init_flat, pos2)
             mask3 = jnp.where(reset, new_mask, mask2)
             elapsed = jnp.where(reset, 0, elapsed)
             return (pos3, mask3, elapsed, racc + rew, stats)
 
-        zi = jnp.zeros((R, W), jnp.int32)
-        zf = jnp.zeros((R, W), jnp.float32)
-        pos, mask, _, racc, stats = jax.lax.fori_loop(
-            0, num_steps, body,
-            (pos_ref[:], mask_ref[:], zi, zf, (zf, zf, zf, zf)),
-        )
-        rng.finalize(n_sites)
-        out_pos[:] = pos
-        out_mask[:] = mask
-        rew_ref[:] = racc
-        if episode_stats:
-            stat_refs[0][:] = stats[1]
-            stat_refs[1][:] = stats[2]
-            stat_refs[2][:] = stats[3]
+        return body
 
-    spec = pl.BlockSpec((R, W), lambda i: (i, 0), memory_space=pltpu.VMEM)
-    tab = pl.BlockSpec(memory_space=pltpu.VMEM)
-    rows_total = num_envs // W
-    i32 = jax.ShapeDtypeStruct((rows_total, W), jnp.int32)
-    f32 = jax.ShapeDtypeStruct((rows_total, W), jnp.float32)
-    n_extra = 3 if episode_stats else 0
     slab = KernelRNG.tape_rows(n_sites, num_steps, R)
-    tape_specs = (
-        [pl.BlockSpec((slab, W), lambda i: (i, 0), memory_space=pltpu.VMEM)]
-        if rng_tape else []
-    )
+    tape_shape = (grid_n * slab, W)
 
     @jax.jit
     def run(seed, pos, mask, *tape):
-        if rng_tape and tuple(tape[0].shape) != (grid_n * slab, W):
-            raise ValueError(
-                f"rng tape must have shape {(grid_n * slab, W)}, got "
-                f"{tuple(tape[0].shape)}"
-            )
-        return pl.pallas_call(
-            kernel,
-            grid=(grid_n,),
-            interpret=interpret_mode,
-            in_specs=[pl.BlockSpec(memory_space=pltpu.SMEM)]
-            + [spec] * 2
-            + [tab] * 3
-            + tape_specs,
-            out_specs=(spec,) * (3 + n_extra),
-            out_shape=(i32, i32, f32) + (f32,) * n_extra,
-        )(seed, pos, mask, rock_at_b, ry_b, rx_b, *tape)
+        if rng_tape:
+            check_tape(tape[0], tape_shape)
+        zi = jnp.zeros(pos.shape, jnp.int32)
+        zf = jnp.zeros(pos.shape, jnp.float32)
+        pos, mask, _, racc, stats = fused_loop(
+            make_body, (pos, mask, zi, zf, (zf,) * 4), seed[0],
+            tape[0] if rng_tape else None,
+            num_steps=num_steps, n_sites=n_sites, R=R,
+        )
+        return (pos, mask, racc) + (stats[1:] if episode_stats else ())
 
-    run.tape_shape = (grid_n * slab, W)
+    run.tape_shape = tape_shape
     run.n_sites = n_sites
     return run

@@ -1,22 +1,18 @@
-"""Pallas fused multi-step ROOMS rollout.
+"""Fused multi-step ROOMS rollout.
 
-Same design as :mod:`gym_po_tpu.ops.fused_taxi` (state resident in VMEM as
-``[R, 128]`` tiles across K steps, hardware PRNG, native lane-shuffle
-gathers), generalized to grids larger than 128 cells:
+Same design as :mod:`gym_po_tpu.ops.fused_taxi` (only the per-env state
+lives across K steps, counter-based randomness, table lookups by flat cell
+index):
 
-* the walk grid and the valid-spawn bank are stored as stacks of 128-lane
-  rows; a lookup shuffles within the ``idx % 128`` lane of every row and
-  selects by ``idx // 128`` — ``ceil(n/128)`` shuffles per lookup
-  (layout '4': 4 rows; '32': 20 rows);
+* the walk grid and the valid-spawn list are flat tables indexed by cell;
 * stochastic action failure is sampled directly from its generative process
   (fail with prob p → uniform over the other A-1 actions), which is exactly
   the reference's row-stochastic failure matrix (reference
   action_utils.py:38-48) without any table;
 * dynamics identical to :meth:`Rooms.step_vec`: blocked moves stay, goal hit
   → goal_reward + reset, ``elapsed > time_limit`` truncation, masked resets
-  of agent and goal from the valid-cell bank.
+  of agent and goal from the valid-cell table.
 
-Measured on one TPU v5e chip (B=64k, K=256): see BASELINE.md.
 Scope: random-policy rollouts; policy-in-the-loop uses the scan path.
 """
 
@@ -25,27 +21,16 @@ from __future__ import annotations
 import jax
 import jax.numpy as jnp
 import numpy as np
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
-from .kernel_rng import KernelRNG
+from .kernel_rng import (
+    KernelRNG, W, check_tape, fused_loop, record_episodes, tiling,
+)
 
 __all__ = ["make_fused_rooms_rollout"]
-
-W = 128
-
-
-def _rows_bank(values: np.ndarray, fill: int) -> np.ndarray:
-    """Pack a 1-D int array into a [n_rows, W] bank padded with ``fill``."""
-    n_rows = -(-values.size // W)
-    bank = np.full((n_rows, W), fill, np.int32)
-    bank.reshape(-1)[: values.size] = values
-    return bank
 
 
 def make_fused_rooms_rollout(env, num_envs: int, num_steps: int,
                              rows_per_tile: int = 128,
-                             interpret: bool = False,
                              episode_stats: bool = False,
                              rng_tape: bool = False):
     """Build ``run(seed, agent, goal) -> (agent', goal', reward_sums)``.
@@ -53,18 +38,17 @@ def make_fused_rooms_rollout(env, num_envs: int, num_steps: int,
     ``agent``/``goal`` are flat cell indices laid out ``[num_envs//128, 128]``
     int32 (``state.agent_yx[:, 0] * grid_W + state.agent_yx[:, 1]``).
     ``episode_stats=True`` appends per-env completed-episode return/length
-    sums and counts (in-kernel ``RecordEpisodeStatistics`` analogue).
+    sums and counts (in-loop ``RecordEpisodeStatistics`` analogue).
     ``rng_tape=True`` makes ``run`` take a trailing int32 tape argument of
-    shape ``run.tape_shape`` replacing the hardware PRNG (see
-    :mod:`gym_po_tpu.ops.kernel_rng`) — the CPU-testable stochastic path.
+    shape ``run.tape_shape`` replacing the counter generator (see
+    :mod:`gym_po_tpu.ops.kernel_rng`).
     """
-    interpret_mode = pltpu.InterpretParams() if interpret else False
     grid_np = env.grid_np
     H, GW = grid_np.shape
     ncells = H * GW
     A = env.num_actions
     disp = np.asarray(env._actions)  # [A, 2] (dy, dx)
-    disp_flat = disp[:, 0] * GW + disp[:, 1]  # displacement in flat cells
+    disp_flat = jnp.asarray((disp[:, 0] * GW + disp[:, 1]).astype(np.int32))
     # recover the failure probability from the compiled cumsum matrix:
     # cum[0, 0] = P(executed=0 | commanded=0) = 1 - p
     p_fail = 1.0 - float(env._cum[0][0])
@@ -80,25 +64,11 @@ def make_fused_rooms_rollout(env, num_envs: int, num_steps: int,
         int(fixed_agent[0] * GW + fixed_agent[1]) if fixed_agent is not None else -1
     )
 
-    wall_bank_np = _rows_bank((grid_np.reshape(-1) == -1).astype(np.int32), 1)
-    valid_cells = np.flatnonzero(grid_np.reshape(-1) >= 0).astype(np.int32)
-    n_valid = valid_cells.size
-    valid_bank_np = _rows_bank(valid_cells, 0)
-    disp_bank_np = _rows_bank(disp_flat.astype(np.int32), 0)  # A <= 8 fits
-    n_wall_rows = wall_bank_np.shape[0]
-    n_valid_rows = valid_bank_np.shape[0]
-
-    if num_envs % W:
-        raise ValueError("num_envs must be a multiple of 128")
-    R = min(rows_per_tile, num_envs // W)
-    tile_envs = R * W
-    if num_envs % tile_envs:
-        raise ValueError("num_envs must divide into [rows_per_tile, 128] tiles")
-    grid_n = num_envs // tile_envs
-
-    wall_b = jnp.asarray(wall_bank_np)
-    valid_b = jnp.asarray(valid_bank_np)
-    disp_b = jnp.asarray(disp_bank_np)
+    is_wall = jnp.asarray((grid_np.reshape(-1) == -1).astype(np.int32))
+    valid_cells_np = np.flatnonzero(grid_np.reshape(-1) >= 0).astype(np.int32)
+    n_valid = valid_cells_np.size
+    valid_cells = jnp.asarray(valid_cells_np)
+    R, grid_n = tiling(num_envs, rows_per_tile)
 
     # draw sites per step, in body-trace order: a_cmd, fail coin, alt,
     # goal respawn, agent respawn (fixed spawns consume no draw)
@@ -106,38 +76,13 @@ def make_fused_rooms_rollout(env, num_envs: int, num_steps: int,
         0 if fixed_agent_flat >= 0 else 1
     )
 
-    def kernel(seed_ref, a_ref, g_ref, wall_r_, valid_r_, disp_r_, *refs):
-        refs = list(refs)
-        tape_ref = refs.pop(0) if rng_tape else None
-        out_a, out_g, rew_ref = refs[:3]
-        stat_refs = refs[3:]
-        rng = KernelRNG(R, num_steps, tape_ref=tape_ref)
-        # large-prime stride keeps tile streams disjoint across nearby seeds
-        rng.seed(seed_ref[0] + pl.program_id(0) * 1000003)
+    def make_body(rng):
         rbits, runiform = rng.rbits, rng.runiform
 
-        def shuffle(lane_idx, row):  # row: [1? n, W] -> broadcast one row
-            return jnp.take_along_axis(
-                jnp.broadcast_to(row, (R, W)), lane_idx, axis=1
-            )
-
-        def bank_gather(idx, bank_ref, n_rows):
-            lane = idx % W
-            row = idx // W
-            out = shuffle(lane, bank_ref[0:1, :])
-            for r in range(1, n_rows):
-                out = jnp.where(row == r, shuffle(lane, bank_ref[r : r + 1, :]), out)
-            return out
-
-        def sample_cell():
-            if fixed_goal_flat >= 0:
-                return jnp.full((R, W), fixed_goal_flat, jnp.int32)
-            return bank_gather(rbits(n_valid), valid_r_, n_valid_rows)
-
-        def sample_agent_cell():
-            if fixed_agent_flat >= 0:
-                return jnp.full((R, W), fixed_agent_flat, jnp.int32)
-            return bank_gather(rbits(n_valid), valid_r_, n_valid_rows)
+        def sample(fixed_flat, like):
+            if fixed_flat >= 0:
+                return jnp.full(like.shape, fixed_flat, jnp.int32)
+            return valid_cells[rbits(n_valid)]
 
         def body(step, carry):
             agent, goal, elapsed, racc, stats = carry
@@ -147,13 +92,11 @@ def make_fused_rooms_rollout(env, num_envs: int, num_steps: int,
             fail = runiform() < jnp.float32(p_fail)
             alt = rbits(A - 1)
             executed = jnp.where(fail, alt + (alt >= a_cmd), a_cmd)
-            d = shuffle(executed, disp_r_[0:1, :])
             # proposed cell; y/x border crossing guarded by the wall ring
             # (every layout has a full wall border, so flat arithmetic is
             # safe: stepping off a row lands on a wall cell)
-            proposed = agent + d
-            proposed = jnp.clip(proposed, 0, ncells - 1)
-            oob = bank_gather(proposed, wall_r_, n_wall_rows) == 1
+            proposed = jnp.clip(agent + disp_flat[executed], 0, ncells - 1)
+            oob = is_wall[proposed] == 1
             agent2 = jnp.where(oob, agent, proposed)
             done = agent2 == goal
             rew = jnp.where(
@@ -165,69 +108,30 @@ def make_fused_rooms_rollout(env, num_envs: int, num_steps: int,
             trunc = elapsed > time_limit
             reset = done | trunc
             if episode_stats:
-                cur_ret, ep_ret, ep_len, ep_cnt = stats
-                cur_ret = cur_ret + rew
-                ep_ret = jnp.where(reset, ep_ret + cur_ret, ep_ret)
-                ep_len = jnp.where(
-                    reset, ep_len + elapsed.astype(jnp.float32), ep_len
-                )
-                ep_cnt = jnp.where(reset, ep_cnt + 1.0, ep_cnt)
-                cur_ret = jnp.where(reset, 0.0, cur_ret)
-                stats = (cur_ret, ep_ret, ep_len, ep_cnt)
-            goal2 = jnp.where(reset, sample_cell(), goal)
-            agent3 = jnp.where(reset, sample_agent_cell(), agent2)
+                stats = record_episodes(stats, rew, reset, elapsed)
+            goal2 = jnp.where(reset, sample(fixed_goal_flat, goal), goal)
+            agent3 = jnp.where(reset, sample(fixed_agent_flat, agent), agent2)
             elapsed = jnp.where(reset, 0, elapsed)
             return (agent3, goal2, elapsed, racc + rew, stats)
 
-        zeros = jnp.zeros((R, W), jnp.int32)
-        zf = jnp.zeros((R, W), jnp.float32)
-        agent, goal, elapsed, racc, stats = jax.lax.fori_loop(
-            0, num_steps, body,
-            (a_ref[:], g_ref[:], zeros, zf, (zf, zf, zf, zf)),
-        )
-        rng.finalize(n_sites)
-        out_a[:] = agent
-        out_g[:] = goal
-        rew_ref[:] = racc
-        if episode_stats:
-            stat_refs[0][:] = stats[1]
-            stat_refs[1][:] = stats[2]
-            stat_refs[2][:] = stats[3]
+        return body
 
-    state_spec = pl.BlockSpec((R, W), lambda i: (i, 0), memory_space=pltpu.VMEM)
-    tab_spec = pl.BlockSpec(memory_space=pltpu.VMEM)
-    rows_total = num_envs // W
-
-    n_extra = 3 if episode_stats else 0
-    f32_out = jax.ShapeDtypeStruct((rows_total, W), jnp.float32)
     slab = KernelRNG.tape_rows(n_sites, num_steps, R)
-    tape_spec = pl.BlockSpec((slab, W), lambda i: (i, 0),
-                             memory_space=pltpu.VMEM)
-    tape_specs = [tape_spec] if rng_tape else []
+    tape_shape = (grid_n * slab, W)
 
     @jax.jit
     def run(seed: jax.Array, agent: jax.Array, goal: jax.Array, *tape):
-        if rng_tape and tuple(tape[0].shape) != (grid_n * slab, W):
-            raise ValueError(
-                f"rng tape must have shape {(grid_n * slab, W)}, got "
-                f"{tuple(tape[0].shape)}"
-            )
-        return pl.pallas_call(
-            kernel,
-            grid=(grid_n,),
-            interpret=interpret_mode,
-            in_specs=[pl.BlockSpec(memory_space=pltpu.SMEM)]
-            + [state_spec] * 2
-            + [tab_spec] * 3
-            + tape_specs,
-            out_specs=(state_spec,) * (3 + n_extra),
-            out_shape=(
-                jax.ShapeDtypeStruct((rows_total, W), jnp.int32),
-                jax.ShapeDtypeStruct((rows_total, W), jnp.int32),
-                f32_out,
-            ) + (f32_out,) * n_extra,
-        )(seed, agent, goal, wall_b, valid_b, disp_b, *tape)
+        if rng_tape:
+            check_tape(tape[0], tape_shape)
+        zi = jnp.zeros(agent.shape, jnp.int32)
+        zf = jnp.zeros(agent.shape, jnp.float32)
+        agent, goal, _, racc, stats = fused_loop(
+            make_body, (agent, goal, zi, zf, (zf,) * 4), seed[0],
+            tape[0] if rng_tape else None,
+            num_steps=num_steps, n_sites=n_sites, R=R,
+        )
+        return (agent, goal, racc) + (stats[1:] if episode_stats else ())
 
-    run.tape_shape = (grid_n * slab, W)
+    run.tape_shape = tape_shape
     run.n_sites = n_sites
     return run

@@ -1,11 +1,10 @@
-"""Pallas fused multi-step rollouts for the JAX ant-task surrogates.
+"""Fused multi-step rollouts for the JAX ant-task surrogates.
 
 TagContinuous is the most randomness-hungry env in the suite (21 per-env
 draws per step: 2 action, 1 flee mode, 2 agent spawn, 16 target-candidate
-spawn), which makes the scan path PRNG-dispatch-bound (~88M steps/s at
-B=64k).  Keeping the four f32 state tiles resident in VMEM and drawing all
-randomness with the hardware PRNG amortizes that completely — the same
-design win as :mod:`.fused_crooms`.
+spawn).  The fused rollout draws all of it from the counter generator
+(:mod:`.kernel_rng`), with no key splitting between steps — the same design
+as :mod:`.fused_crooms`.
 
 Semantics match :meth:`TagContinuous.step_vec` / :meth:`HeavenHellContinuous.
 step_vec` under the uniform-random policy (task constants from reference
@@ -13,9 +12,9 @@ step_vec` under the uniform-random policy (task constants from reference
 moves, the target's {away, two orthogonals, stay} flee rule cancelled at the
 cage edge, tag/terminal radii, 8-candidate >= 5.0 target spawn with the
 farthest-corner fallback, T-maze free-space clamp, priest-revealed heaven.
-Like the rest of the fused family the kernels are *stats-matched* (not
-bit-exact) against the scan path — they draw from the hardware PRNG, not
-threefry.
+Like the rest of the fused family the rollouts are *stats-matched* (not
+bit-exact) against the scan path — they draw from the counter generator,
+not threefry.
 """
 
 from __future__ import annotations
@@ -23,8 +22,6 @@ from __future__ import annotations
 import jax
 import jax.numpy as jnp
 import numpy as np
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
 from ..envs.tag_jax import (
     BAR,
@@ -36,29 +33,19 @@ from ..envs.tag_jax import (
     TAG_RADIUS,
     TARGET_STEP,
 )
-from .kernel_rng import KernelRNG
+from .kernel_rng import (
+    KernelRNG, W, check_tape, fused_loop, record_episodes, tiling,
+)
 
 __all__ = ["make_fused_tag_rollout", "make_fused_heavenhell_rollout"]
-
-W = 128
 
 _CORNERS = np.array(
     [[-CAGE, -CAGE], [-CAGE, CAGE], [CAGE, -CAGE], [CAGE, CAGE]], np.float32
 )
 
 
-def _tiling(num_envs: int, rows_per_tile: int):
-    if num_envs % W:
-        raise ValueError("num_envs must be a multiple of 128")
-    R = min(rows_per_tile, num_envs // W)
-    if num_envs % (R * W):
-        raise ValueError("num_envs must divide into [rows_per_tile, 128] tiles")
-    return R, num_envs // (R * W)
-
-
 def make_fused_tag_rollout(env, num_envs: int, num_steps: int,
                            rows_per_tile: int = 128,
-                           interpret: bool = False,
                            episode_stats: bool = False,
                            rng_tape: bool = False):
     """Build ``run(seed, a0, a1, t0, t1) -> (a0', a1', t0', t1', reward_sums)``.
@@ -66,26 +53,19 @@ def make_fused_tag_rollout(env, num_envs: int, num_steps: int,
     All five arrays are f32 ``[num_envs // 128, 128]`` (agent xy, target xy
     component tiles; reward sums accumulated over ``num_steps``).
     ``episode_stats=True`` appends per-env completed-episode return/length
-    sums and counts (in-kernel ``RecordEpisodeStatistics`` analogue).
+    sums and counts (in-loop ``RecordEpisodeStatistics`` analogue).
     ``rng_tape=True`` makes ``run`` take a trailing int32 tape argument of
-    shape ``run.tape_shape`` replacing the hardware PRNG (see
-    :mod:`gym_po_tpu.ops.kernel_rng`) — the CPU-testable stochastic path.
+    shape ``run.tape_shape`` replacing the counter generator (see
+    :mod:`gym_po_tpu.ops.kernel_rng`).
     """
-    interpret_mode = pltpu.InterpretParams() if interpret else False
-    R, grid_n = _tiling(num_envs, rows_per_tile)
+    R, grid_n = tiling(num_envs, rows_per_tile)
     speed = float(env.agent_speed)
     time_limit = int(env.time_limit)
     # draw sites per step, in body-trace order: 2 agent-move uniforms, flee
     # mode, respawn agent xy (2), respawn target candidates (8 x 2)
     n_sites = 21
 
-    def kernel(seed_ref, a0_r, a1_r, t0_r, t1_r, *outs):
-        outs = list(outs)
-        tape_ref = outs.pop(0) if rng_tape else None
-        o_a0, o_a1, o_t0, o_t1, rew_ref = outs[:5]
-        stat_refs = outs[5:]  # (ep_ret, ep_len, ep_cnt) when episode_stats
-        rng = KernelRNG(R, num_steps, tape_ref=tape_ref)
-        rng.seed(seed_ref[0] + pl.program_id(0) * 1000003)
+    def make_body(rng):
         rbits, runiform = rng.rbits, rng.runiform
 
         def rcage():
@@ -95,8 +75,8 @@ def make_fused_tag_rollout(env, num_envs: int, num_steps: int,
             """8 uniform candidates, first with dist >= MIN_SPAWN_DIST wins;
             farthest cage corner as the always-valid fallback (>= 6.3)."""
             # farthest corner per env (4 static corners, running max)
-            fc0 = jnp.full((R, W), _CORNERS[0, 0], jnp.float32)
-            fc1 = jnp.full((R, W), _CORNERS[0, 1], jnp.float32)
+            fc0 = jnp.full(a0.shape, _CORNERS[0, 0], jnp.float32)
+            fc1 = jnp.full(a0.shape, _CORNERS[0, 1], jnp.float32)
             best = (fc0 - a0) ** 2 + (fc1 - a1) ** 2
             for c0, c1 in _CORNERS[1:]:
                 d = (c0 - a0) ** 2 + (c1 - a1) ** 2
@@ -105,7 +85,7 @@ def make_fused_tag_rollout(env, num_envs: int, num_steps: int,
                 fc1 = jnp.where(better, c1, fc1)
                 best = jnp.maximum(best, d)
             out0, out1 = fc0, fc1
-            found = jnp.zeros((R, W), jnp.bool_)
+            found = jnp.zeros(a0.shape, jnp.bool_)
             for _ in range(8):
                 c0 = rcage()
                 c1 = rcage()
@@ -149,15 +129,7 @@ def make_fused_tag_rollout(env, num_envs: int, num_steps: int,
             elapsed = elapsed + 1
             reset = done | (elapsed >= time_limit)
             if episode_stats:
-                cur_ret, ep_ret, ep_len, ep_cnt = stats
-                cur_ret = cur_ret + rew
-                ep_ret = jnp.where(reset, ep_ret + cur_ret, ep_ret)
-                ep_len = jnp.where(
-                    reset, ep_len + elapsed.astype(jnp.float32), ep_len
-                )
-                ep_cnt = jnp.where(reset, ep_cnt + 1.0, ep_cnt)
-                cur_ret = jnp.where(reset, 0.0, cur_ret)
-                stats = (cur_ret, ep_ret, ep_len, ep_cnt)
+                stats = record_episodes(stats, rew, reset, elapsed)
             na0 = rcage()
             na1 = rcage()
             nt0, nt1 = spawn_target(na0, na1)
@@ -168,71 +140,44 @@ def make_fused_tag_rollout(env, num_envs: int, num_steps: int,
             elapsed = jnp.where(reset, 0, elapsed)
             return (a0, a1, t0, t1, elapsed, racc + rew, stats)
 
-        zf = jnp.zeros((R, W), jnp.float32)
-        a0, a1, t0, t1, _, racc, stats = jax.lax.fori_loop(
-            0, num_steps, body,
-            (a0_r[:], a1_r[:], t0_r[:], t1_r[:], jnp.zeros((R, W), jnp.int32),
-             zf, (zf, zf, zf, zf)),
-        )
-        rng.finalize(n_sites)
-        o_a0[:] = a0
-        o_a1[:] = a1
-        o_t0[:] = t0
-        o_t1[:] = t1
-        rew_ref[:] = racc
-        if episode_stats:
-            stat_refs[0][:] = stats[1]
-            stat_refs[1][:] = stats[2]
-            stat_refs[2][:] = stats[3]
+        return body
 
-    spec = pl.BlockSpec((R, W), lambda i: (i, 0), memory_space=pltpu.VMEM)
-    f32 = jax.ShapeDtypeStruct((num_envs // W, W), jnp.float32)
-    n_out = 5 + (3 if episode_stats else 0)
     slab = KernelRNG.tape_rows(n_sites, num_steps, R)
-    tape_specs = (
-        [pl.BlockSpec((slab, W), lambda i: (i, 0), memory_space=pltpu.VMEM)]
-        if rng_tape else []
-    )
+    tape_shape = (grid_n * slab, W)
 
     @jax.jit
     def run(seed, a0, a1, t0, t1, *tape):
-        if rng_tape and tuple(tape[0].shape) != (grid_n * slab, W):
-            raise ValueError(
-                f"rng tape must have shape {(grid_n * slab, W)}, got "
-                f"{tuple(tape[0].shape)}"
-            )
-        return pl.pallas_call(
-            kernel,
-            grid=(grid_n,),
-            interpret=interpret_mode,
-            in_specs=[pl.BlockSpec(memory_space=pltpu.SMEM)] + [spec] * 4
-            + tape_specs,
-            out_specs=(spec,) * n_out,
-            out_shape=(f32,) * n_out,
-        )(seed, a0, a1, t0, t1, *tape)
+        if rng_tape:
+            check_tape(tape[0], tape_shape)
+        zi = jnp.zeros(a0.shape, jnp.int32)
+        zf = jnp.zeros(a0.shape, jnp.float32)
+        *state, _, racc, stats = fused_loop(
+            make_body, (a0, a1, t0, t1, zi, zf, (zf,) * 4), seed[0],
+            tape[0] if rng_tape else None,
+            num_steps=num_steps, n_sites=n_sites, R=R,
+        )
+        return (*state, racc) + (stats[1:] if episode_stats else ())
 
-    run.tape_shape = (grid_n * slab, W)
+    run.tape_shape = tape_shape
     run.n_sites = n_sites
     return run
 
 
 def make_fused_heavenhell_rollout(env, num_envs: int, num_steps: int,
                                   rows_per_tile: int = 128,
-                                  interpret: bool = False,
-                                  episode_stats: bool = False,
+                                         episode_stats: bool = False,
                                   rng_tape: bool = False):
     """Build ``run(seed, x, y, heaven) -> (x', y', heaven', reward_sums)``.
 
     ``x``/``y``/``reward_sums`` are f32 tiles, ``heaven`` is an int32 tile
     (1 = heaven on the +x side this episode).
     ``episode_stats=True`` appends per-env completed-episode return/length
-    sums and counts (in-kernel ``RecordEpisodeStatistics`` analogue).
+    sums and counts (in-loop ``RecordEpisodeStatistics`` analogue).
     ``rng_tape=True`` makes ``run`` take a trailing int32 tape argument of
-    shape ``run.tape_shape`` replacing the hardware PRNG (see
-    :mod:`gym_po_tpu.ops.kernel_rng`) — the CPU-testable stochastic path.
+    shape ``run.tape_shape`` replacing the counter generator (see
+    :mod:`gym_po_tpu.ops.kernel_rng`).
     """
-    interpret_mode = pltpu.InterpretParams() if interpret else False
-    R, grid_n = _tiling(num_envs, rows_per_tile)
+    R, grid_n = tiling(num_envs, rows_per_tile)
     speed = float(env.agent_speed)
     time_limit = int(env.time_limit)
     hx, hy = float(HH_SITES[0, 0]), float(HH_SITES[0, 1])  # heaven-left site
@@ -241,13 +186,7 @@ def make_fused_heavenhell_rollout(env, num_envs: int, num_steps: int,
     # x/y uniforms, heaven coin
     n_sites = 5
 
-    def kernel(seed_ref, x_r, y_r, h_r, *outs):
-        outs = list(outs)
-        tape_ref = outs.pop(0) if rng_tape else None
-        o_x, o_y, o_h, rew_ref = outs[:4]
-        stat_refs = outs[4:]  # (ep_ret, ep_len, ep_cnt) when episode_stats
-        rng = KernelRNG(R, num_steps, tape_ref=tape_ref)
-        rng.seed(seed_ref[0] + pl.program_id(0) * 1000003)
+    def make_body(rng):
         runiform = rng.runiform
 
         def rbit():
@@ -271,7 +210,6 @@ def make_fused_heavenhell_rollout(env, num_envs: int, num_steps: int,
             at_left = dl <= r2
             at_right = dr <= r2
             done = at_left | at_right
-            # boolean algebra, not where-on-bools: Mosaic rejects i1 selects
             right_side = h == 1
             reached = (right_side & at_right) | (~right_side & at_left)
             rew = jnp.where(done, jnp.where(reached, 1.0, -1.0), 0.0).astype(
@@ -280,15 +218,7 @@ def make_fused_heavenhell_rollout(env, num_envs: int, num_steps: int,
             elapsed = elapsed + 1
             reset = done | (elapsed >= time_limit)
             if episode_stats:
-                cur_ret, ep_ret, ep_len, ep_cnt = stats
-                cur_ret = cur_ret + rew
-                ep_ret = jnp.where(reset, ep_ret + cur_ret, ep_ret)
-                ep_len = jnp.where(
-                    reset, ep_len + elapsed.astype(jnp.float32), ep_len
-                )
-                ep_cnt = jnp.where(reset, ep_cnt + 1.0, ep_cnt)
-                cur_ret = jnp.where(reset, 0.0, cur_ret)
-                stats = (cur_ret, ep_ret, ep_len, ep_cnt)
+                stats = record_episodes(stats, rew, reset, elapsed)
             # spawn: x ~ U(-1,1), y ~ U(0,1), fair heaven coin
             nx = runiform() * 2.0 - 1.0
             ny = runiform()
@@ -299,50 +229,24 @@ def make_fused_heavenhell_rollout(env, num_envs: int, num_steps: int,
             elapsed = jnp.where(reset, 0, elapsed)
             return (x, y, h, elapsed, racc + rew, stats)
 
-        zf = jnp.zeros((R, W), jnp.float32)
-        x, y, h, _, racc, stats = jax.lax.fori_loop(
-            0, num_steps, body,
-            (x_r[:], y_r[:], h_r[:], jnp.zeros((R, W), jnp.int32),
-             zf, (zf, zf, zf, zf)),
-        )
-        rng.finalize(n_sites)
-        o_x[:] = x
-        o_y[:] = y
-        o_h[:] = h
-        rew_ref[:] = racc
-        if episode_stats:
-            stat_refs[0][:] = stats[1]
-            stat_refs[1][:] = stats[2]
-            stat_refs[2][:] = stats[3]
+        return body
 
-    spec = pl.BlockSpec((R, W), lambda i: (i, 0), memory_space=pltpu.VMEM)
-    rows_total = num_envs // W
-    f32 = jax.ShapeDtypeStruct((rows_total, W), jnp.float32)
-    i32 = jax.ShapeDtypeStruct((rows_total, W), jnp.int32)
-    n_extra = 3 if episode_stats else 0
     slab = KernelRNG.tape_rows(n_sites, num_steps, R)
-    tape_specs = (
-        [pl.BlockSpec((slab, W), lambda i: (i, 0), memory_space=pltpu.VMEM)]
-        if rng_tape else []
-    )
+    tape_shape = (grid_n * slab, W)
 
     @jax.jit
     def run(seed, x, y, h, *tape):
-        if rng_tape and tuple(tape[0].shape) != (grid_n * slab, W):
-            raise ValueError(
-                f"rng tape must have shape {(grid_n * slab, W)}, got "
-                f"{tuple(tape[0].shape)}"
-            )
-        return pl.pallas_call(
-            kernel,
-            grid=(grid_n,),
-            interpret=interpret_mode,
-            in_specs=[pl.BlockSpec(memory_space=pltpu.SMEM)] + [spec] * 3
-            + tape_specs,
-            out_specs=(spec,) * (4 + n_extra),
-            out_shape=(f32, f32, i32, f32) + (f32,) * n_extra,
-        )(seed, x, y, h, *tape)
+        if rng_tape:
+            check_tape(tape[0], tape_shape)
+        zi = jnp.zeros(x.shape, jnp.int32)
+        zf = jnp.zeros(x.shape, jnp.float32)
+        *state, _, racc, stats = fused_loop(
+            make_body, (x, y, h, zi, zf, (zf,) * 4), seed[0],
+            tape[0] if rng_tape else None,
+            num_steps=num_steps, n_sites=n_sites, R=R,
+        )
+        return (*state, racc) + (stats[1:] if episode_stats else ())
 
-    run.tape_shape = (grid_n * slab, W)
+    run.tape_shape = tape_shape
     run.n_sites = n_sites
     return run

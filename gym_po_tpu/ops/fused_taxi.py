@@ -1,51 +1,53 @@
-"""Pallas fused multi-step Taxi rollout — the speed-of-light path.
+"""Fused multi-step Taxi rollout: K env steps in one loop, state never leaves.
 
-The jitted ``lax.scan`` rollout (``vector.rollout``) round-trips env state
-and one-hot gather operands through HBM every step.  This kernel keeps
-EVERYTHING in VMEM for K steps per invocation:
+``vector.rollout`` runs a generic ``lax.scan`` over ``env.step_vec`` and
+materializes the ``[T, B]`` trajectory.  This rollout keeps only the
+per-env encoded state, the episode counters and the reward sum live across
+the K steps, and draws every random number from the counter-based generator
+(:mod:`.kernel_rng`):
 
-* env state lives as ``[R, 128]`` int32 tiles — full 8×128 VPU lane
-  utilization (a ``[TILE, 1]`` column layout measured 9x slower);
-* the per-cell tables (``cell_move`` per action, ``loc_at``) are ≤128-wide
-  rows gathered with the native lane-shuffle (``take_along_axis`` lowers to
-  Mosaic's dynamic-gather; the MXU one-hot trick is unnecessary in VMEM);
-* randomness is the on-core hardware PRNG (``pltpu.prng_random_bits``),
-  seeded per grid tile; draws are ``uint32 % n`` (bias ≤ n/2^32, negligible);
-* in-graph autoreset and passenger/destination task resets exactly as
-  ``Taxi.step_vec`` — same dynamics, different (hardware) PRNG stream.
+* the per-cell tables (``cell_move`` per action, ``loc_at``, the valid
+  reset cells, an optional per-state policy) are flat arrays indexed by
+  state;
+* in-loop autoreset and passenger/destination task resets exactly as
+  ``Taxi.step_vec`` — same dynamics, a different random stream.
 
-Measured on one TPU v5e chip, B=64k, K=256: **1.30B env-steps/s** for the
-classic map (vs 457M for the XLA scan path, 6.25M/chip north-star target).
+One step body, two implementations with one contract:
+
+* ``impl="xla"``: the body under ``lax.fori_loop`` on ``[B/128, 128]``
+  arrays, compiled by XLA — the CPU path and the kernel's reference;
+* ``impl="triton"``: the same body inside a Pallas kernel for the GPU
+  (``backend="triton"``), one program per 1-D tile of envs, the state in
+  registers for all K steps and the tables read by gathered loads.  The
+  counter hash and the tape give both the same bits, so their results are
+  bit-identical.  Under XLA the loop launches the step's fusions every
+  iteration and streams the state through device memory; the kernel does
+  neither (on the H100 at K=256: 105.8B against 54.6B env-steps/s at
+  B=1M, 42.0B against 5.8B at B=64k, PERF.md).
 
 Scope: random-policy rollouts (throughput benchmarking, random exploration,
 dataset generation) and — via ``policy=`` — greedy tabular-policy
-evaluation with the per-state action table resident in VMEM (packed
-``[ceil(ns/128), 128]``, one lane shuffle per row bank per step).
-Policy-in-the-loop *training* interleaves a network forward per step and
-uses the scan path.
+evaluation.  Policy-in-the-loop *training* uses the scan path.
 """
 
 from __future__ import annotations
 
-
-from typing import Optional, Tuple
+from typing import Optional
 
 import jax
 import jax.numpy as jnp
 import numpy as np
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
-from .kernel_rng import KernelRNG
+from .kernel_rng import KernelRNG, W, check_tape, record_episodes, tiling
 
 __all__ = ["make_fused_taxi_rollout", "state_policy_table"]
 
-W = 128  # lane width; also the padded width of every per-cell table
+IMPLS = ("xla", "triton")
 
 
 def state_policy_table(env, policy) -> np.ndarray:
     """Compose the env's state→obs map with a ``(key, obs) -> action`` policy
-    into an ``[ns]`` per-encoded-state action table for the fused kernel.
+    into an ``[ns]`` per-encoded-state action table for the fused rollout.
 
     Works for any deterministic policy on a ``Discrete`` obs space (e.g.
     ``agents.greedy_policy(q)``); the Hansen variants are handled because
@@ -61,141 +63,109 @@ def state_policy_table(env, policy) -> np.ndarray:
     return np.asarray(policy(None, obs), np.int32)
 
 
+def _pow2_pad(values: np.ndarray, fill: int) -> np.ndarray:
+    """1-D int32 table padded to a power-of-two length (Triton block rule)."""
+    n = 1 << max(0, int(values.size - 1).bit_length())
+    out = np.full((max(n, 1),), fill, np.int32)
+    out[: values.size] = values
+    return out
+
+
+def _block_envs(num_envs: int, R: int) -> int:
+    """Envs per Triton program: a power of two that divides the tape tile,
+    at most 1024, and leaves >= 4 programs per SM of a 132-SM card."""
+    tile = R * W
+    t = tile & -tile  # largest power of two dividing the tape tile
+    t = min(t, 1024)
+    while t > 128 and num_envs // t < 4 * 132:
+        t //= 2
+    return t
+
+
 def make_fused_taxi_rollout(env, num_envs: int, num_steps: int,
-                            rows_per_tile: int = 128, interpret: bool = False,
+                            rows_per_tile: int = 128,
                             policy: Optional[np.ndarray] = None,
                             episode_stats: bool = False,
-                            rng_tape: bool = False):
-    # CPU testing path: the TPU-specific primitives (prng_seed, dynamic
-    # gather) need the TPU interpreter, not the generic one
-    interpret_mode = pltpu.InterpretParams() if interpret else False
+                            rng_tape: bool = False,
+                            impl: Optional[str] = None,
+                            interpret: bool = False):
     """Build ``run(seed, s) -> (s', reward_sums)`` for a :class:`Taxi` env.
 
     ``s`` is the encoded state laid out ``[num_envs // 128, 128]`` int32
     (use ``state.s.reshape(-1, 128)`` from ``reset_vec``); ``reward_sums``
     accumulates per-env reward over the ``num_steps`` steps.  ``seed`` is a
-    ``[1]`` int32 (SMEM scalar).  Actions are uniform-random draws, or —
-    when ``policy`` (an ``[ns]`` int32 per-state action table, see
+    ``[1]`` int32.  Actions are uniform-random draws, or — when ``policy``
+    (an ``[ns]`` int32 per-state action table, see
     :func:`state_policy_table`) is given — the table's greedy actions, with
-    the PRNG then only consumed by episode/task resets.
+    the generator then only consumed by episode/task resets.
 
     ``episode_stats=True`` appends three per-env f32 outputs — summed
     COMPLETED-episode returns, summed completed-episode lengths, and the
-    completed-episode count — the in-kernel analogue of the scan path's
+    completed-episode count — the in-loop analogue of the scan path's
     ``RecordEpisodeStatistics`` (mean episode return =
     ``ep_ret.sum() / ep_cnt.sum()``).
 
     ``rng_tape=True`` makes ``run`` take a trailing int32 tape argument of
-    shape ``run.tape_shape`` replacing the hardware PRNG (see
-    :mod:`gym_po_tpu.ops.kernel_rng`) — the CPU-testable stochastic path.
+    shape ``run.tape_shape`` (tiles of ``rows_per_tile`` rows, see
+    :mod:`gym_po_tpu.ops.kernel_rng`) replacing the counter generator.
+
+    ``impl`` picks the implementation: ``"triton"`` (the GPU kernel, the
+    default on a GPU backend: 1.9-7.2x the XLA twin on the H100, PERF.md)
+    or ``"xla"`` (the default elsewhere).  ``interpret=True`` runs the
+    Triton kernel through the Pallas interpreter (CPU tests only).
     """
+    if impl is None:
+        impl = "triton" if jax.default_backend() == "gpu" else "xla"
+    if impl not in IMPLS:
+        raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
     t = env.tables
     nc = t.rows * t.cols
-    if nc > W:
-        raise ValueError(f"map has {nc} cells; fused kernel supports <= {W}")
     nlocs, rows, cols = t.nlocs, t.rows, t.cols
     pd = (nlocs + 1) * nlocs
     n_pass = env.num_passengers
     time_limit = env.time_limit
     r_goal, r_bad, r_any = env.reward_goal, env.reward_bad, env.reward_any
     all_valid = env._all_cells_valid
+    R, grid = tiling(num_envs, rows_per_tile)
 
-    if num_envs % W:
-        raise ValueError("num_envs must be a multiple of 128")
-    R = min(rows_per_tile, num_envs // W)
-    tile_envs = R * W
-    if num_envs % tile_envs:
-        raise ValueError("num_envs must divide into [rows_per_tile, 128] tiles")
-    grid = num_envs // tile_envs
-
-    # cell_move bank: one combined [cell*4+a] row when it fits in 128 lanes
-    # (classic: 100); otherwise one row per action (extended: 4 x 64)
-    cm_host = np.asarray(env._cell_move).reshape(nc, 4)
-    combined_cm = nc * 4 <= W
-    if combined_cm:
-        cm_bank = np.zeros((1, W), np.int32)
-        cm_bank[0, : nc * 4] = cm_host.reshape(-1)
-        cm_tables = (jnp.asarray(cm_bank),)
-    else:
-        banks = np.zeros((4, 1, W), np.int32)
-        banks[:, 0, :nc] = cm_host.T
-        cm_tables = tuple(jnp.asarray(banks[i]) for i in range(4))
-    la_bank = np.full((1, W), nlocs, np.int32)
-    la_bank[0, :nc] = np.asarray(env._loc_at)
-    la = jnp.asarray(la_bank)
-    # reset-cell bank for maps with interior walls (extended: 55 valid cells)
+    tabs = {
+        # cell_move[cell * 4 + a] for the four moves
+        "cm": _pow2_pad(np.asarray(env._cell_move).reshape(-1), 0),
+        "la": _pow2_pad(np.asarray(env._loc_at).reshape(-1), nlocs),
+    }
     valid_cells = np.flatnonzero((t.tgrid != "|").reshape(-1))
     n_valid = valid_cells.size
-    vc_bank = np.zeros((1, W), np.int32)
-    vc_bank[0, :n_valid] = valid_cells
-    vc = jnp.asarray(vc_bank)
-    # per-state greedy action table, packed [ceil(ns/128), 128]
+    if not all_valid:
+        tabs["vc"] = _pow2_pad(valid_cells, 0)
     if policy is not None:
-        ns = nc * pd
         pol_host = np.asarray(policy, np.int32).reshape(-1)
-        if pol_host.size != ns:
-            raise ValueError(f"policy table must have {ns} entries")
-        n_pol_rows = -(-ns // W)
-        pol_bank = np.zeros((n_pol_rows, W), np.int32)
-        pol_bank.reshape(-1)[:ns] = pol_host
-        pol_tables: Tuple[jax.Array, ...] = (jnp.asarray(pol_bank),)
-    else:
-        n_pol_rows = 0
-        pol_tables = ()
+        if pol_host.size != nc * pd:
+            raise ValueError(f"policy table must have {nc * pd} entries")
+        tabs["pol"] = _pow2_pad(pol_host, 0)
+    names = tuple(tabs)
 
     # draw sites per step, in body-trace order: action (random policy only),
     # task pn, task d0, full-reset cell (2 draws when every cell is
-    # navigable, else 1 bank draw), reset pr, reset dr0
+    # navigable, else 1), reset pr, reset dr0
     n_sites = (1 if policy is None else 0) + 2 + (2 if all_valid else 1) + 2
 
-    def kernel(seed_ref, s_ref, *refs):
-        cm_refs = refs[: len(cm_tables)]
-        rest = list(refs[len(cm_tables) :])
-        la_r, vc_r = rest[:2]
-        rest = rest[2:]
-        if policy is not None:
-            pol_r = rest.pop(0)
-        tape_ref = rest.pop(0) if rng_tape else None
-        out_ref, rew_ref = rest[:2]
-        stat_refs = rest[2:]  # (ep_ret, ep_len, ep_cnt) when episode_stats
-        rng = KernelRNG(R, num_steps, tape_ref=tape_ref)
-        # large-prime stride keeps tile streams disjoint across nearby seeds
-        rng.seed(seed_ref[0] + pl.program_id(0) * 1000003)
+    def make_body(rng, tab):
+        """One env step on arrays of any shape; ``tab[name][idx]`` is a
+        gather from an array or a load from a kernel ref."""
         rbits = rng.rbits
-        cm_b = [jnp.broadcast_to(r[:], (R, W)) for r in cm_refs]
-        la_b = jnp.broadcast_to(la_r[:], (R, W))
-        vc_b = jnp.broadcast_to(vc_r[:], (R, W))
-
-        def gather(idx, tab):  # native lane shuffle, idx in [0, W)
-            return jnp.take_along_axis(tab, idx, axis=1)
 
         def body(step, carry):
             s, completed, elapsed, racc, stats = carry
             rng.begin_step(step)
-            if policy is None:
-                a = rbits(5)
-            else:  # greedy action: lane shuffle per policy row bank
-                lane = s % W
-                row = s // W
-                a = gather(lane, jnp.broadcast_to(pol_r[0:1, :], (R, W)))
-                for i in range(1, n_pol_rows):
-                    cand = gather(
-                        lane, jnp.broadcast_to(pol_r[i : i + 1, :], (R, W))
-                    )
-                    a = jnp.where(row == i, cand, a)
+            a = rbits(5) if policy is None else tab["pol"][s]
             # decode (reference extended_taxi.py:84-94)
             rc = s // pd
             rem = s % pd
             p = rem // nlocs
             d = rem % nlocs
-            if combined_cm:  # one shuffle against the [cell*4+a] bank
-                moved = gather(rc * 4 + jnp.minimum(a, 3), cm_b[0])
-            else:  # per-action banks + selects
-                moved = gather(rc, cm_b[0])
-                for i in (1, 2, 3):
-                    moved = jnp.where(a == i, gather(rc, cm_b[i]), moved)
+            moved = tab["cm"][rc * 4 + jnp.minimum(a, 3)]
             is_pd = a == 4
-            loc = gather(rc, la_b)
+            loc = tab["la"][rc]
             goal = is_pd & (p == nlocs) & (loc == d)
             pickup = is_pd & (p < nlocs) & (loc == p)
             bad = is_pd & (~goal) & (~pickup)
@@ -214,88 +184,129 @@ def make_fused_taxi_rollout(env, num_envs: int, num_steps: int,
             task = goal & ~(done | trunc)
             pn = rbits(nlocs)
             d0 = rbits(nlocs - 1)
-            dn = d0 + (d0 >= pn)
+            dn = d0 + (d0 >= pn).astype(jnp.int32)
             p3 = jnp.where(task, pn, p2)
             d3 = jnp.where(task, dn, d)
             # full reset: arithmetic components when every cell is navigable,
-            # valid-cell-bank shuffle otherwise
+            # a valid-cell table lookup otherwise
             reset = done | trunc
             if all_valid:
                 rc_new = rbits(rows) * cols + rbits(cols)
             else:
-                rc_new = gather(rbits(n_valid), vc_b)
+                rc_new = tab["vc"][rbits(n_valid)]
             pr = rbits(nlocs)
             dr0 = rbits(nlocs - 1)
-            dr = dr0 + (dr0 >= pr)
+            dr = dr0 + (dr0 >= pr).astype(jnp.int32)
             rc3 = jnp.where(reset, rc_new, rc2)
             p4 = jnp.where(reset, pr, p3)
             d4 = jnp.where(reset, dr, d3)
             completed = jnp.where(reset, 0, completed)
             s2 = (rc3 * (nlocs + 1) + p4) * nlocs + d4
             if episode_stats:
-                (cur_ret, ep_ret, ep_len, ep_cnt) = stats
-                cur_ret = cur_ret + rew
-                ep_ret = jnp.where(reset, ep_ret + cur_ret, ep_ret)
-                ep_len = jnp.where(
-                    reset, ep_len + elapsed.astype(jnp.float32), ep_len
-                )
-                ep_cnt = jnp.where(reset, ep_cnt + 1.0, ep_cnt)
-                cur_ret = jnp.where(reset, 0.0, cur_ret)
-                stats2 = (cur_ret, ep_ret, ep_len, ep_cnt)
-            else:
-                stats2 = stats
+                stats = record_episodes(stats, rew, reset, elapsed)
             elapsed = jnp.where(reset, 0, elapsed)
-            return (s2, completed, elapsed, racc + rew, stats2)
+            return (s2, completed, elapsed, racc + rew, stats)
 
-        zeros = jnp.zeros((R, W), jnp.int32)
-        zf = jnp.zeros((R, W), jnp.float32)
+        return body
+
+    def loop(rng, tab, s):
+        zi = jnp.zeros(s.shape, jnp.int32)
+        zf = jnp.zeros(s.shape, jnp.float32)
         s, _, _, racc, stats = jax.lax.fori_loop(
-            0,
-            num_steps,
-            body,
-            (s_ref[:], zeros, zeros, zf, (zf, zf, zf, zf)),
+            0, num_steps, make_body(rng, tab), (s, zi, zi, zf, (zf,) * 4)
         )
         rng.finalize(n_sites)
-        out_ref[:] = s
-        rew_ref[:] = racc
-        if episode_stats:
-            stat_refs[0][:] = stats[1]
-            stat_refs[1][:] = stats[2]
-            stat_refs[2][:] = stats[3]
+        return (s, racc) + (tuple(stats[1:]) if episode_stats else ())
 
-    state_spec = pl.BlockSpec((R, W), lambda i: (i, 0), memory_space=pltpu.VMEM)
-    tab_spec = pl.BlockSpec(memory_space=pltpu.VMEM)
     rows_total = num_envs // W
-
-    n_out = 2 + (3 if episode_stats else 0)
-    f32_out = jax.ShapeDtypeStruct((rows_total, W), jnp.float32)
     slab = KernelRNG.tape_rows(n_sites, num_steps, R)
-    tape_specs = (
-        [pl.BlockSpec((slab, W), lambda i: (i, 0), memory_space=pltpu.VMEM)]
-        if rng_tape else []
+    tape_shape = (grid * slab, W)
+    tab_arrays = tuple(jnp.asarray(tabs[k]) for k in names)
+
+    if impl == "xla":
+
+        @jax.jit
+        def run(seed, s, *tape):
+            if rng_tape:
+                check_tape(tape[0], tape_shape)
+            rng = KernelRNG.for_layout(
+                seed[0], s.shape, num_steps,
+                tape=tape[0] if rng_tape else None, R=R,
+            )
+            return loop(rng, dict(zip(names, tab_arrays)), s)
+
+    else:
+        run = _triton_run(loop, names, tab_arrays, num_envs, num_steps, R,
+                          slab, tape_shape, rows_total, rng_tape,
+                          episode_stats, interpret)
+
+    run.tape_shape = tape_shape
+    run.n_sites = n_sites
+    return run
+
+
+def _triton_run(loop, names, tab_arrays, num_envs, num_steps, R, slab,
+                tape_shape, rows_total, rng_tape, episode_stats, interpret):
+    """The shared loop as one Pallas/Triton kernel over 1-D env tiles."""
+    from jax.experimental import pallas as pl
+    from jax.experimental.pallas import triton as plgpu
+
+    T = _block_envs(num_envs, R)
+    tile_envs = R * W
+    if rng_tape and tape_shape[0] * W >= 2**31:
+        raise ValueError("the tape's offsets exceed int32: use fewer steps")
+    n_tabs = len(names)
+    n_out = 2 + (3 if episode_stats else 0)
+
+    def kernel(seed_ref, s_ref, *refs):
+        tab_refs = refs[:n_tabs]
+        rest = refs[n_tabs:]
+        tape_ref = rest[0] if rng_tape else None
+        outs = rest[1:] if rng_tape else rest
+        base = pl.program_id(0) * T
+        env_index = base + jnp.arange(T, dtype=jnp.int32)
+        draw = None
+        if rng_tape:
+            # this block's envs are contiguous inside one tape tile, so each
+            # row block of the tile's slab is one contiguous T-wide load
+            start = (base // tile_envs) * (slab * W) + base % tile_envs
+
+            def draw(block):
+                x = tape_ref[pl.ds(start + block * tile_envs, T)]
+                return jax.lax.bitcast_convert_type(x, jnp.uint32)
+
+        rng = KernelRNG(seed_ref[0], env_index, num_steps, tape_draw=draw)
+        res = loop(rng, dict(zip(names, tab_refs)), s_ref[...])
+        for o, v in zip(outs, res):
+            o[...] = v
+
+    blk = pl.BlockSpec((T,), lambda i: (i,))
+    whole = pl.BlockSpec()  # the whole array, read at computed offsets
+    in_specs = (
+        [whole, blk] + [whole] * n_tabs + ([whole] if rng_tape else [])
+    )
+    out_shape = (jax.ShapeDtypeStruct((num_envs,), jnp.int32),) + (
+        jax.ShapeDtypeStruct((num_envs,), jnp.float32),
+    ) * (n_out - 1)
+    call = pl.pallas_call(
+        kernel,
+        grid=(num_envs // T,),
+        in_specs=in_specs,
+        out_specs=(blk,) * n_out,
+        out_shape=out_shape,
+        backend="triton",
+        compiler_params=plgpu.CompilerParams(num_warps=4, num_stages=1),
+        interpret=interpret,
+        name="fused_taxi_rollout",
     )
 
     @jax.jit
-    def run(seed: jax.Array, s: jax.Array, *tape) -> Tuple[jax.Array, ...]:
-        if rng_tape and tuple(tape[0].shape) != (grid * slab, W):
-            raise ValueError(
-                f"rng tape must have shape {(grid * slab, W)}, got "
-                f"{tuple(tape[0].shape)}"
-            )
-        return pl.pallas_call(
-            kernel,
-            grid=(grid,),
-            interpret=interpret_mode,
-            in_specs=[pl.BlockSpec(memory_space=pltpu.SMEM)]
-            + [state_spec]
-            + [tab_spec] * (len(cm_tables) + 2 + len(pol_tables))
-            + tape_specs,
-            out_specs=(state_spec,) * n_out,
-            out_shape=(
-                jax.ShapeDtypeStruct((rows_total, W), jnp.int32),
-            ) + (f32_out,) * (n_out - 1),
-        )(seed, s, *cm_tables, la, vc, *pol_tables, *tape)
+    def run(seed, s, *tape):
+        extra = ()
+        if rng_tape:
+            check_tape(tape[0], tape_shape)
+            extra = (tape[0].reshape(-1),)
+        res = call(seed.reshape(1), s.reshape(-1), *tab_arrays, *extra)
+        return tuple(r.reshape(rows_total, W) for r in res)
 
-    run.tape_shape = (grid * slab, W)
-    run.n_sites = n_sites
     return run

@@ -1,26 +1,23 @@
-"""Data-parallel execution of the fused in-kernel trainers.
+"""Data-parallel execution of the fused tabular trainers.
 
 Implements the chunk-synchronous table-averaging scheme specified in
-``docs/MULTIHOST.md`` — the tabular analogue of Anakin, for the Pallas
+``docs/MULTIHOST.md`` — the tabular analogue of Anakin, for the fused
 trainer family (:mod:`gym_po_tpu.ops.fused_qlearning`, ``fused_ac``):
 
-1. the env batch is sharded over the mesh's ``data`` axis; each chip runs
-   the single-core kernel on its shard with its OWN VMEM-resident table
-   copy, seeded disjointly;
-2. after every chunk (one kernel invocation, K steps) the table banks are
-   ``pmean``-averaged across the mesh — 16 KB per ``[32, 128]`` table, a
-   microsecond-scale ICI collective;
+1. the env batch is sharded over the mesh's ``data`` axis; each device runs
+   the trainer on its shard with its OWN table copy, seeded disjointly;
+2. after every chunk (one ``run`` call, K steps) the table banks are
+   ``pmean``-averaged across the mesh — 16 KB per ``[32, 128]`` table;
 3. the next chunk resumes from the averaged tables.
 
 Chunk-averaged tabular Q-learning is the standard parallel-Q scheme:
 consistent as ``K·lr`` stays small, and with ``average_duplicates=True``
 the effective step size is invariant to the global batch size.
 
-The harness is kernel-agnostic: any ``run_chunk`` with signature
-``(seed[1], *args) -> outs`` slots in, so the SAME orchestration is
-validated on the 8-device virtual CPU mesh by substituting the XLA scan
-trainer (:func:`gym_po_tpu.agents.qlearning.make_xla_q_chunk_trainer`)
-for the Pallas kernel, which cannot run there (see docs/TESTING.md).
+The harness is trainer-agnostic: any ``run_chunk`` with signature
+``(seed[1], *args) -> outs`` slots in.  The trainers are plain JAX, so the
+same code runs on the 8-device virtual CPU mesh of the tests and on a
+multi-GPU mesh.
 
 The reference has no counterpart for any of this (SURVEY.md §2.5: its only
 parallelism is single-process batch vectorization).

@@ -1,15 +1,14 @@
 """Device mesh construction and sharded rollout execution.
 
 The reference has no distributed machinery at all (no NCCL/MPI/Gloo imports,
-SURVEY.md §2.5) — this subsystem is new, designed the TPU way: a
-``jax.sharding.Mesh`` spans the pod slice, the env batch is sharded over the
-``data`` axis with ``shard_map``, XLA routes any cross-device traffic over ICI
-(intra-slice) / DCN (inter-slice) automatically, and learner gradient
-reduction is a single ``psum`` over the same axis
-(:mod:`gym_po_tpu.agents.ppo`).
+SURVEY.md §2.5) — this subsystem is new: a ``jax.sharding.Mesh`` spans the
+devices, the env batch is sharded over the ``data`` axis with
+``shard_map``, XLA routes any cross-device traffic (NCCL over NVLink between
+the cards of a GPU host), and learner gradient reduction is a single
+``psum`` over the same axis (:mod:`gym_po_tpu.agents.ppo`).
 
 Env stepping itself needs **zero communication**: every env instance is
-independent, so an N-chip rollout is N single-chip rollouts running in
+independent, so an N-device rollout is N single-device rollouts running in
 lockstep — near-linear scaling by construction.  Collectives appear only in
 the learner (gradient ``psum``) and in metric reductions (``pmean``).
 """
@@ -22,7 +21,6 @@ from typing import Callable, Optional, Sequence, Tuple
 
 import jax
 import numpy as np
-from jax.experimental import mesh_utils
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 from ..core import Environment
@@ -96,17 +94,15 @@ def make_mesh(
     """Build a device mesh.
 
     Defaults to a 1-D ``('data',)`` mesh over every addressable device —
-    the right layout for an embarrassingly-parallel env batch.
-    ``mesh_utils.create_device_mesh`` orders devices so neighboring mesh
-    coordinates are ICI neighbors.
+    the right layout for an embarrassingly-parallel env batch.  The devices
+    are laid out in the given order: NVLink joins every card of a host to
+    every other at the same rate, so no ordering is better than another.
     """
     if devices is None:
         devices = jax.devices()
     if shape is None:
         shape = (len(devices),) + (1,) * (len(axis_names) - 1)
-    dev_array = mesh_utils.create_device_mesh(
-        tuple(shape), devices=list(devices)
-    )
+    dev_array = np.asarray(list(devices), dtype=object).reshape(tuple(shape))
     return Mesh(dev_array, tuple(axis_names))
 
 
@@ -147,7 +143,7 @@ def sharded_rollout(
     """Run ``num_envs`` environments for ``num_steps``, sharded over ``axis``.
 
     Each device owns ``num_envs / axis_size`` independent envs and runs the
-    same single-chip ``lax.scan`` rollout (:func:`gym_po_tpu.vector.rollout`);
+    same single-device ``lax.scan`` rollout (:func:`gym_po_tpu.vector.rollout`);
     there is no cross-device traffic in the env loop.  Returned arrays are
     global (sharded) jax.Arrays: time axis replicated-layout, batch axis
     sharded over ``axis``.

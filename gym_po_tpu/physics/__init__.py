@@ -1,4 +1,4 @@
-"""TPU-native articulated rigid-body physics for the ant POMDPs.
+"""JAX articulated rigid-body physics for the ant POMDPs.
 
 A from-scratch JAX re-implementation of the subset of MuJoCo the reference's
 ant envs use (reference ``gym_po/envs/ant_tag.py`` / ``ant_heaven_hell.py``

@@ -3,7 +3,7 @@
 The kinematic tree, geometry, and mass properties are derived from the same
 compact leg specification that generates the MJCF assets
 (:mod:`gym_po_tpu.envs.mjcf`) — NOT parsed from a compiled MuJoCo model, so
-the TPU engine has no runtime MuJoCo dependency.  ``tests/test_physics.py``
+the JAX engine has no runtime MuJoCo dependency.  ``tests/test_physics.py``
 asserts every derived quantity (masses, CoMs, full inertia tensors, joint
 layout, actuator map) against the MuJoCo-compiled model bit-for-bit at f64.
 

@@ -1,13 +1,13 @@
 """Smooth rigid-body dynamics for the ant: FK, Jacobians, CRBA, bias.
 
-TPU-first formulation, second generation: every per-env intermediate is a
+Accelerator-first formulation, second generation: every per-env intermediate is a
 shape-() *scalar* (Python tuples/lists of them), so under ``jax.vmap`` the
-whole smooth-dynamics pass is straight-line ``[B]``-vector code that fills
-all 128 lanes — the same trick as :func:`gym_po_tpu.physics.linalg.chol_solve`.
-The first-generation array formulation (``[nb,nv,3]`` Jacobian tensors and
-einsums) measured bandwidth-bound on lane padding: a ``[B,13,14,3]`` tensor
-tiles to ``(16,128)`` per (body,dof) — 48x the useful bytes — and throughput
-was flat in B.  Scalarizing removes every padded intermediate.
+whole smooth-dynamics pass is straight-line ``[B]``-vector code — the same
+trick as :func:`gym_po_tpu.physics.linalg.chol_solve`.  It was shaped for
+the previous accelerator's 128-lane vector tiles, where the array
+formulation's ``[nb,nv,3]`` Jacobian tensors padded badly; on the H100 the
+array formulation (:func:`smooth_forward_array`) is the faster one
+(PERF.md).
 
 The math is unchanged and still mirrors MuJoCo (the substrate under
 reference ``gym_po/envs/ant_tag.py:138-158``):
@@ -468,9 +468,8 @@ def smooth_forward_array(model: AntModel, qpos, qvel, ctrl):
     Emits ~5x less HLO than the scalar core — paired with
     :func:`..contact.constraint_rows_array` under
     ``engine.forward(pipeline="array")`` for compile-time-bound settings
-    (the XLA:CPU multichip dryrun).  Runtime throughput on TPU is WORSE
-    than the scalar core (lane-padded [nb,nv,3] intermediates — the
-    measured first-generation result, see module docstring); numerics agree
+    (the XLA:CPU multichip dryrun).  Runtime throughput against the scalar
+    core on the GPU is measured in PERF.md; numerics agree
     with the scalar core to fp-association (parity-tested in
     ``tests/test_physics_contact.py::test_array_pipeline_matches_scalar``).
 

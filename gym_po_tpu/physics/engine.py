@@ -1,4 +1,4 @@
-"""Forward dynamics + RK4 integration — the TPU ant simulator's outer loop.
+"""Forward dynamics + RK4 integration — the ant simulator's outer loop.
 
 Mirrors MuJoCo's pipeline (``mj_forward`` → ``mj_RungeKutta``), reference
 substrate for ``gym_po/envs/ant_tag.py:138-158``:
@@ -64,15 +64,24 @@ def forward(model: AntModel, qpos, qvel, ctrl, warm=None,
     (zero warm start == the unconstrained solution, already correct for
     contact-free frames).  ``ls_iters`` = bisections per Newton line
     search (an accuracy/speed knob, see ``solve_constraints_newton_s``;
-    a chord tail phase was measured strictly slower on hardware and
-    removed — BASELINE.md).
+    a chord tail phase was measured strictly slower and removed —
+    docs/ARCHITECTURE.md).
 
-    ``pipeline`` selects the constraint formulation: ``"scalar"`` (the
-    TPU runtime perf path — static per-row dof sparsity, straight-line
-    [B]-vector code under vmap) or ``"array"`` (same math on stacked row
-    arrays via :func:`..contact.constraint_rows_array` — ~50x smaller HLO,
+    ``pipeline`` selects the constraint formulation: ``"scalar"`` (static
+    per-row dof sparsity, straight-line [B]-vector code under vmap) or
+    ``"array"`` (same math on stacked row arrays via
+    :func:`..contact.constraint_rows_array` — ~50x smaller HLO,
     for compile-time-bound settings like the XLA:CPU multichip
-    dryrun)."""
+    dryrun).
+
+    Every contraction is traced at ``Precision.HIGHEST``: a GPU would
+    otherwise run f32 matmuls in TF32 (about three decimal digits)."""
+    with jax.default_matmul_precision("highest"):
+        return _forward(model, qpos, qvel, ctrl, warm, iters, ls_iters,
+                        pipeline)
+
+
+def _forward(model, qpos, qvel, ctrl, warm, iters, ls_iters, pipeline):
     dtype = qpos.dtype
     nv = model.nv
     if pipeline == "array":

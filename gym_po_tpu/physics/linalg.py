@@ -2,11 +2,10 @@
 
 XLA's batched ``lax.linalg.cholesky`` / ``triangular_solve`` run a blocked
 while-loop algorithm sized for large matrices; for the ant's 14x14 systems
-under ``vmap`` they cost ~2ms at B=1024 on TPU (measured) — pure per-op
-overhead on [B]-element column updates that the loop structure prevents XLA
-from fusing.  Unrolling the factorization at trace time turns it into
-straight-line vector code over the batch axis that XLA fuses aggressively:
-2.4x faster at B=1024 and scaling with B (see ``BASELINE.md``).
+under ``vmap`` they pay per-op overhead on [B]-element column updates that
+the loop structure prevents XLA from fusing.  Unrolling the factorization at
+trace time turns it into straight-line vector code over the batch axis that
+XLA fuses aggressively.
 
 Used by :func:`gym_po_tpu.physics.dynamics.smooth_forward` (M qacc = qfrc)
 and :func:`gym_po_tpu.physics.contact.solve_constraints_newton` (H dq = -g).

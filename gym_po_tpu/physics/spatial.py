@@ -1,4 +1,4 @@
-"""Quaternion / SO(3) algebra for the TPU-native rigid-body engine.
+"""Quaternion / SO(3) algebra for the JAX rigid-body engine.
 
 All functions are shape-polymorphic over leading batch axes and jit/vmap
 friendly.  Quaternions use MuJoCo's ``[w, x, y, z]`` layout so states are

@@ -478,7 +478,7 @@ def render_ant_scene(env, state, idx=None, width: int = 320,
     own render path (``gym_po/envs/ant_tag.py:27-75`` renders the MuJoCo
     scene via gymnasium; the mocap spheres at ``:141-145`` exist to be
     seen).  Host-side: drives a headless ``mujoco.Renderer`` (EGL) from
-    fetched ``qpos``; the TPU engine simulates the SAME compiled model
+    fetched ``qpos``; the JAX engine simulates the SAME compiled model
     (``envs/mjcf.py``, signature parity ``tests/test_ant_parity.py``), so
     the scene is the true simulator state, not an approximation.
 

@@ -8,12 +8,12 @@ from .grid import (
 )
 from .checkpoint import latest_step, restore_checkpoint, save_checkpoint
 from .debug import assert_finite, checked
-from .platform import enable_compilation_cache, pin_platform_from_env
+from .platform import compilation_cache_dir, enable_compilation_cache
 from .profiling import Timer, annotate, steps_per_second, trace
 
 __all__ = [
     "enable_compilation_cache",
-    "pin_platform_from_env",
+    "compilation_cache_dir",
     "save_checkpoint",
     "restore_checkpoint",
     "latest_step",

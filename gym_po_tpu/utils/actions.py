@@ -66,14 +66,12 @@ def make_exec_action(cum: np.ndarray):
     """Jittable executed-action stage: (action, u) -> action'.
 
     Shape-polymorphic (scalar or [B] leading axis); the failure-matrix row
-    lookup rides the MXU one-hot path (gym_po_tpu.ops.row_gather).
+    lookup is a small-table gather.
     """
-    from ..ops import row_gather
-
     cum_j = jnp.asarray(cum, jnp.float32)
 
     def exec_action(action: jnp.ndarray, u: jnp.ndarray) -> jnp.ndarray:
-        rows = row_gather(cum_j, action)  # [..., A]
+        rows = cum_j[action]  # [..., A]
         return (rows < u[..., None]).sum(-1).astype(jnp.int32)
 
     return exec_action

@@ -14,7 +14,7 @@ Conventions (stated so MFU numbers are reproducible):
 
 * one FLOP per scalar float op (add/mul/sub/div/min/max/…); transcendental
   and rsqrt/sqrt ops also count 1 (they cost more microscopically, but the
-  VPU pipelines them — treating them as 1 under-states achieved FLOP/s,
+  vector units pipeline them — treating them as 1 under-states achieved FLOP/s,
   i.e. is conservative for MFU claims);
 * ``dot_general`` counts 2·M·N·K·batch (multiply-add = 2);
 * integer arithmetic, comparisons, selects, and data movement

@@ -1,28 +1,21 @@
-"""Sequential-dispatch batching: the library API for the B>4096 cliff.
+"""Sequential-dispatch batching: a rollout over more envs than one
+compiled program takes.
 
-The ant engine's Newton contact solver keeps ~400 per-row ``[B]`` arrays
-live across its line-search loop; that loop-resident set fits VMEM at
-B≈4096 and spills beyond it, roughly halving throughput at B=16384
-(BASELINE.md "the B>4096 cliff", ``benchmarks/cliff_probe.py``).  The
-measured remedy is NOT in-program chunking (``lax.map`` recovers only 11% —
-XLA does not give the map body the B=4096-quality schedule) but *sequential
-host dispatches of an executable compiled at the sweet spot*: four B=4096
-dispatches measure 69.3k env-steps/s vs the monolithic B=16384 program's
-33.7k — the dispatches pipeline on-device because JAX dispatch is async.
-
-This module packages that remedy as a public surface, so a user stepping
-B=16384 envs gets the fast path without reading BASELINE.md prose:
-
-* :func:`chunked_rollout` — drop-in for :func:`gym_po_tpu.vector.rollout`
-  with a ``dispatch_batch`` knob.
-* :func:`make_chunked_step` — a ``step_vec``-shaped callable that issues
-  per-chunk dispatches of one compiled step.
+:func:`chunked_rollout` compiles the rollout at ``dispatch_batch`` envs and
+dispatches it sequentially over ``num_envs // dispatch_batch`` chunks;
+:func:`make_chunked_step` does the same for one ``step_vec``.  On the H100
+one monolithic program is faster than chunks at every batch measured: the
+ant engine (rk4, frame_skip 15, 8 iterations, array pipeline) runs 16,840
+env-steps/s at B=4096, 18,864 at 16,384 and 19,718 at 65,536 as one
+program, against 2,791 (16,384 in 4,096-wide chunks) and 7,281-7,959
+(65,536 in 4,096- or 16,384-wide chunks) — PERF.md.  So
+:data:`DISPATCH_BATCH` is the largest batch measured monolithic, and
+chunking is a fallback for batches whose program would not fit the card.
 
 Chunks use independent fold_in-derived PRNG keys, so results differ from a
 monolithic call numerically (same distributions; parity mode is unaffected
-— it never batches above the sweet spot).  For multi-chip scale prefer the
-data-parallel mesh (env stepping has no cross-device communication); this
-API is for packing more envs onto ONE chip.
+— it never chunks).  For more envs than one card holds prefer the
+data-parallel mesh (env stepping has no cross-device communication).
 """
 
 from __future__ import annotations
@@ -38,8 +31,9 @@ from .vec_env import Transition, rollout
 
 __all__ = ["chunked_rollout", "make_chunked_step", "DISPATCH_BATCH"]
 
-#: measured compiled sweet spot of the ant engine (BASELINE.md cliff table)
-DISPATCH_BATCH = 4096
+#: the largest batch measured as one program on the H100 (PERF.md ant batch
+#: curve): below it a monolithic rollout beats sequential chunks
+DISPATCH_BATCH = 65536
 
 
 def _split_chunks(tree, num_chunks: int):

@@ -8,7 +8,7 @@ Here the batch axis is native to the device: a :class:`VecEnv` is a thin
 in-graph masked autoreset already provided by ``Environment.step_env`` —
 stepping B envs is one fused XLA program with zero host synchronization.
 
-Multi-chip scaling shards the same functions over a mesh
+Multi-device scaling shards the same functions over a mesh
 (:mod:`gym_po_tpu.parallel`); this module is deliberately device-count
 agnostic.
 """

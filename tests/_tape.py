@@ -1,8 +1,8 @@
-"""NumPy-side mirror of the fused kernels' tape-mode randomness.
+"""NumPy-side mirror of the fused rollouts' tape-mode randomness.
 
-The kernels consume draws via :class:`gym_po_tpu.ops.kernel_rng.KernelRNG`
-in tape mode: draw site ``j`` at loop step ``t`` reads tape rows
-``(j * num_steps + t) * R .. + R``.  :class:`TapeOracle` reproduces that
+The fused loops consume draws via
+:class:`gym_po_tpu.ops.kernel_rng.KernelRNG` in tape mode: draw site ``j``
+at loop step ``t`` reads tape rows ``(j * num_steps + t) * R .. + R``.  :class:`TapeOracle` reproduces that
 consumption in NumPy so a per-kernel oracle can replay the exact stochastic
 path on CPU.
 
@@ -38,7 +38,7 @@ def make_tape(rng: np.random.Generator, n_sites: int, num_steps: int,
 
 
 class TapeOracle:
-    """Mirrors KernelRNG's tape-mode draw indexing for one grid tile."""
+    """Mirrors KernelRNG's tape-mode draw indexing for one tape tile."""
 
     def __init__(self, tape_i32: np.ndarray, num_steps: int, R: int):
         self.tape = np.asarray(tape_i32).view(np.uint32)
@@ -75,19 +75,7 @@ class TapeOracle:
         return np.sqrt(np.float32(-2.0) * ln) * c
 
 
-# --- trainer-kernel oracle pieces ------------------------------------------
-# The MXU iota-mask scatter reduces the env axis with dot_general and splits
-# the weighted operand into bf16x2; a NumPy matmul would sum in a different
-# order, so the oracle delegates exactly those two primitives to jitted jnp
-# (verified: pallas-interpret dot_general == jitted dot_general on CPU,
-# bit for bit) while re-deriving the mask construction, chunk order,
-# duplicate averaging, and everything around them in NumPy.
-_jdot = jax.jit(
-    lambda a, b: jax.lax.dot_general(
-        a, b, (((1,), (1,)), ((), ())), preferred_element_type=jnp.float32
-    )
-)
-_jbf16 = jax.jit(lambda a: a.astype(jnp.bfloat16).astype(jnp.float32))
+# --- trainer oracle pieces --------------------------------------------------
 _jexp = jax.jit(jnp.exp)
 
 
@@ -117,30 +105,26 @@ def first_argmax_oracle(vals):
     return best_a, best_v
 
 
-def mxu_scatter_oracle(hi: np.ndarray, lo: np.ndarray, w: np.ndarray,
-                       R: int, average_duplicates: bool, nb: int):
-    """Mirror of ops.fused_qlearning._mxu_scatter (bf16x2 split dots)."""
-    acc_s = np.zeros((nb, W), np.float32)
-    acc_n = np.zeros((nb, W), np.float32)
-    for row in range(R):
-        P = (np.arange(W, dtype=np.int32)[:, None] == lo[row][None, :]).astype(
-            np.float32
-        )
-        M = (np.arange(nb, dtype=np.int32)[:, None] == hi[row][None, :]).astype(
-            np.float32
-        )
-        X = M * w[row][None, :]
-        x_hi = np.asarray(_jbf16(X))
-        x_lo = X - x_hi
-        acc_s = acc_s + np.asarray(_jdot(x_hi, P)) + np.asarray(_jdot(x_lo, P))
-        if average_duplicates:
-            acc_n = acc_n + np.asarray(_jdot(M, P))
+def scatter_oracle(hi: np.ndarray, lo: np.ndarray, w: np.ndarray,
+                   R: int, average_duplicates: bool, nb: int):
+    """Mirror of ops.fused_qlearning.scatter_update's increment: ``w``
+    summed per table entry ``hi*128 + lo`` in row-major order (entries with
+    ``hi < 0`` dropped), divided by the entry's count when averaging."""
+    hi = np.asarray(hi)[:R].reshape(-1)
+    lo = np.asarray(lo)[:R].reshape(-1)
+    w = np.asarray(w, np.float32)[:R].reshape(-1)
+    keep = hi >= 0
+    idx = hi[keep] * W + lo[keep]
+    acc_s = np.zeros((nb * W,), np.float32)
+    np.add.at(acc_s, idx, w[keep])
     if average_duplicates:
-        return acc_s / np.maximum(acc_n, np.float32(1.0))
-    return acc_s
+        acc_n = np.zeros((nb * W,), np.float32)
+        np.add.at(acc_n, idx, np.float32(1.0))
+        acc_s = acc_s / np.maximum(acc_n, np.float32(1.0))
+    return acc_s.reshape(nb, W)
 
 
 def ac_scatter_oracle(hi: np.ndarray, lo: np.ndarray, w: np.ndarray,
                       R: int, nb: int):
-    """Mirror of ops.fused_ac's scatter_pass (always count-averaged)."""
-    return mxu_scatter_oracle(hi, lo, w, R, True, nb)
+    """Mirror of ops.fused_ac's averaged scatter-adds."""
+    return scatter_oracle(hi, lo, w, R, True, nb)

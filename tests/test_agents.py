@@ -44,7 +44,7 @@ def test_discrete_policy_head():
     )
     ent = entropy(pi)
     assert (np.asarray(ent) > 0).all()
-    # +1e-4 covers TPU VPU transcendental precision in log/exp
+    # +1e-4 covers accelerator transcendental precision in log/exp
     assert (np.asarray(ent) <= np.log(env.action_space.n) + 1e-4).all()
 
 
@@ -61,7 +61,7 @@ def test_gaussian_policy_head():
     # analytic check of the Gaussian log-prob at the mean
     lp_mean = np.asarray(log_prob(pi, pi["mean"]))
     expected = -float(pi["log_std"][0]) - 0.5 * np.log(2 * np.pi)
-    # rtol covers TPU VPU transcendental precision (~2e-5 on jnp.log)
+    # rtol covers accelerator transcendental precision (~2e-5 on jnp.log)
     np.testing.assert_allclose(lp_mean, expected, rtol=1e-4)
 
 

@@ -1,4 +1,4 @@
-"""Task-layer tests for the articulated ant POMDPs on the TPU engine.
+"""Task-layer tests for the articulated ant POMDPs on the JAX engine.
 
 Physics-vs-MuJoCo parity lives in ``tests/test_physics*.py``; here we test
 the Environment protocol around it (reference task semantics from

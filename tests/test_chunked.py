@@ -1,11 +1,10 @@
-"""Sequential-dispatch batching (vector.chunked) — the B>4096 cliff API.
+"""Sequential-dispatch batching (vector.chunked).
 
 Correctness on CPU: chunked results must carry the full batch with the
 right shapes and the same per-chunk dynamics as single-dispatch calls
 (chunk i of a chunked call sees exactly the key ``fold_in(key, i)``, so
-equality against a manual per-chunk loop is exact).  The throughput claim
-itself (69.3k vs 33.7k env-steps/s at B=16384) is hardware-measured in
-``benchmarks/cliff_probe.py --api``.
+equality against a manual per-chunk loop is exact).  Whether chunking pays
+on the card is the ant batch curve in PERF.md.
 """
 
 import numpy as np

@@ -1,15 +1,13 @@
 """Chunk-synchronous data-parallel fused trainers (docs/MULTIHOST.md).
 
-Validated on the virtual 8-device CPU mesh three ways:
+Validated on the virtual 8-device CPU mesh two ways:
 - a dummy chunk trainer exercises the bare orchestration (per-shard seeds,
-  sharded state tiles, per-chunk table ``pmean``) with hand-checkable
+  sharded state arrays, per-chunk table ``pmean``) with hand-checkable
   numerics;
-- the XLA chunk trainer (:func:`make_xla_q_chunk_trainer`) substitutes for
-  the Pallas kernel, proving the full ``fused_q_learning(mesh=...)`` driver
-  end-to-end (a 1-device mesh is bit-identical to no mesh);
-- the real Pallas kernels run in interpret mode inside ``shard_map``,
-  proving the kernel-side contract (tile shapes, bank replication) under
-  the sharded launcher itself.
+- the fused trainers run inside ``shard_map``, proving the full
+  ``fused_q_learning(mesh=...)`` / ``fused_actor_critic(mesh=...)`` drivers
+  end-to-end (a 1-device mesh is bit-identical to no mesh) and the
+  trainer-side contract (state shapes, bank replication).
 
 The reference has no distributed machinery at all (SURVEY.md §2.5).
 """
@@ -29,11 +27,6 @@ from gym_po_tpu.parallel import (
     shard_fused_trainer,
 )
 
-ON_TPU = jax.devices()[0].platform == "tpu"
-
-pytestmark = pytest.mark.skipif(
-    ON_TPU, reason="multi-device orchestration tests need the CPU mesh"
-)
 
 
 @pytest.fixture(scope="module")
@@ -87,7 +80,7 @@ def test_fused_q_learning_mesh1_bit_identical_to_no_mesh():
 
     env = gpt.make("Taxi-v4")
     kw = dict(seed=3, schedule=[(0.2, 0.3, 32)], num_envs=1024,
-              chunk_steps=16, chunk_trainer="xla")
+              chunk_steps=16)
     q_a, h_a = fused_q_learning(env, **kw)
     mesh1 = make_mesh(shape=(1,), devices=jax.devices()[:1])
     q_b, h_b = fused_q_learning(env, mesh=mesh1, **kw)
@@ -96,8 +89,7 @@ def test_fused_q_learning_mesh1_bit_identical_to_no_mesh():
 
 
 def test_fused_q_learning_mesh8_xla_trainer_learns():
-    """Full driver on the 8-device mesh with the XLA chunk trainer: the
-    pmean-averaged table must pick up signal (dropoff value > pickup-free
+    """Full driver on the 8-device mesh: the pmean-averaged table must pick up signal (dropoff value > pickup-free
     baseline) and reward must improve chunk over chunk."""
     from gym_po_tpu.agents import fused_q_learning
 
@@ -105,7 +97,7 @@ def test_fused_q_learning_mesh8_xla_trainer_learns():
     mesh = make_mesh()
     q, hist = fused_q_learning(
         env, seed=0, schedule=[(0.25, 0.5, 128), (0.25, 0.1, 128)],
-        num_envs=2048, chunk_steps=64, chunk_trainer="xla", mesh=mesh,
+        num_envs=2048, chunk_steps=64, mesh=mesh,
     )
     assert q.shape == (500, 5)
     assert np.isfinite(q).all()
@@ -117,15 +109,15 @@ def test_fused_q_learning_mesh8_xla_trainer_learns():
 
 
 def test_fused_q_learning_mesh8_pallas_interpret():
-    """The REAL taxi kernel (interpret mode) under the sharded launcher:
-    1024 envs per shard, per-shard [8, 128] state tiles, replicated banks."""
+    """The taxi trainer under the sharded launcher: 1024 envs per shard,
+    per-shard [8, 128] state arrays, replicated banks."""
     from gym_po_tpu.agents import fused_q_learning
 
     env = gpt.make("Taxi-v4")
     mesh = make_mesh()
     q, hist = fused_q_learning(
         env, seed=0, schedule=[(0.1, 0.0, 16)], num_envs=8192,
-        chunk_steps=8, interpret=True, mesh=mesh,
+        chunk_steps=8, mesh=mesh,
     )
     assert q.shape == (500, 5)
     assert np.isfinite(q).all()
@@ -139,7 +131,7 @@ def test_fused_actor_critic_mesh8_pallas_interpret():
     mesh = make_mesh()
     logits, v, hist = fused_actor_critic(
         env, seed=0, schedule=[(0.05, 0.05, 16)], num_envs=8192,
-        chunk_steps=8, interpret=True, mesh=mesh,
+        chunk_steps=8, mesh=mesh,
     )
     assert logits.shape == (int(env.observation_space.n), 8)
     assert np.isfinite(logits).all() and np.isfinite(v).all()
@@ -155,12 +147,11 @@ def test_fused_q_learning_mesh_rejects_indivisible_batch():
 
 
 def test_xla_chunk_trainer_matches_fused_contract_shapes():
-    """Signature parity with make_fused_q_trainer: same tile/bank shapes."""
-    from gym_po_tpu.agents import make_xla_q_chunk_trainer
-    from gym_po_tpu.ops.fused_qlearning import q_to_banks
+    """The chunk trainer's contract: state and bank shapes and dtypes."""
+    from gym_po_tpu.ops.fused_qlearning import make_fused_q_trainer, q_to_banks
 
     env = gpt.make("Taxi-v4")
-    run = make_xla_q_chunk_trainer(env, 256, 4)
+    run = make_fused_q_trainer(env, 256, 4, average_duplicates=True)
     _, st = env.reset_vec(jax.random.PRNGKey(0), 256)
     s = jnp.asarray(np.asarray(st.s).reshape(-1, 128), jnp.int32)
     qb = jnp.asarray(q_to_banks(np.zeros((512, 5), np.float32)))

@@ -21,8 +21,6 @@ import jax
 
 from gym_po_tpu.parallel import distributed_init
 
-ON_TPU = jax.devices()[0].platform == "tpu"
-
 _WORKER = r"""
 import sys
 rank, port = int(sys.argv[1]), sys.argv[2]
@@ -66,7 +64,6 @@ def _free_port() -> int:
 
 
 @pytest.mark.slow
-@pytest.mark.skipif(ON_TPU, reason="multi-process CPU test")
 def test_two_process_ppo_train_step(tmp_path):
     worker = tmp_path / "worker.py"
     worker.write_text(_WORKER)

@@ -11,8 +11,8 @@ trace-size regression fails the default suite the day it lands.
 
 Bounds: the array pipeline lowers this program to ~66k StableHLO lines and
 compiles in ~11 s on this machine; the scalar pipeline it guards against is
-~16x larger (123k HLO lines for step_vec alone, BASELINE.md compile-time
-table) and minutes-to-tens-of-minutes to compile.  200k lines / 240 s keep
+~16x larger (123k HLO lines for step_vec alone) and minutes-to-tens-of-
+minutes to compile.  200k lines / 240 s keep
 ~3x headroom for loaded machines while still failing fast on a return to
 scalar-class traces.
 """

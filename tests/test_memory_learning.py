@@ -7,9 +7,8 @@ CPU-budget trick as the tag smoke in test_ppo_rnn.py): calibrated on this
 machine, GRU-PPO reaches heaven_frac = 1.000 at pos rate 0.077/step within
 50 updates (~8 s), while feedforward PPO at the IDENTICAL config touches
 chance-level terminals (frac 0.50) then collapses to zero arrivals — the
-asserted margins are >3x below the measured gap.  The full-scale
-(reference-config) version of this result is BASELINE.md's heaven-hell
-learning table; the articulated version is tests/test_ant_learning_hw.py.
+asserted margins are >3x below the measured gap.  The articulated version
+is tests/test_ant_hh_learning_hw.py.
 """
 
 import numpy as np

@@ -1,4 +1,4 @@
-"""ops/: MXU-routed table gathers + batched fast-path consistency."""
+"""Batched fast-path consistency of the env steps."""
 
 import numpy as np
 import pytest
@@ -7,44 +7,6 @@ import jax
 import jax.numpy as jnp
 
 import gym_po_tpu as gpt
-from gym_po_tpu.ops import ONE_HOT_MAX_TABLE, row_gather, table_gather
-
-
-@pytest.mark.parametrize("ns", [7, 512, ONE_HOT_MAX_TABLE, ONE_HOT_MAX_TABLE + 1])
-def test_table_gather_exact(ns):
-    rng = np.random.default_rng(0)
-    table = jnp.asarray(rng.integers(0, 2**23, ns), jnp.int32)
-    idx = jnp.asarray(rng.integers(0, ns, 1000), jnp.int32)
-    np.testing.assert_array_equal(
-        np.asarray(jax.jit(table_gather)(table, idx)), np.asarray(table)[idx]
-    )
-
-
-def test_table_gather_under_vmap():
-    rng = np.random.default_rng(1)
-    table = jnp.asarray(rng.integers(0, 100, 64), jnp.int32)
-    idx = jnp.asarray(rng.integers(0, 64, (16, 8)), jnp.int32)
-    out = jax.jit(jax.vmap(lambda i: table_gather(table, i)))(idx)
-    np.testing.assert_array_equal(np.asarray(out), np.asarray(table)[idx])
-
-
-@pytest.mark.parametrize("ns", [9, 441, ONE_HOT_MAX_TABLE + 1])
-def test_row_gather_exact(ns):
-    rng = np.random.default_rng(2)
-    table = jnp.asarray(rng.integers(-50, 50, (ns, 3)), jnp.int32)
-    idx = jnp.asarray(rng.integers(0, ns, 500), jnp.int32)
-    np.testing.assert_array_equal(
-        np.asarray(jax.jit(row_gather)(table, idx)), np.asarray(table)[idx]
-    )
-
-
-def test_row_gather_float_table():
-    rng = np.random.default_rng(3)
-    table = jnp.asarray(rng.standard_normal((8, 8)), jnp.float32)
-    idx = jnp.asarray(rng.integers(0, 8, 100), jnp.int32)
-    np.testing.assert_array_equal(
-        np.asarray(row_gather(table, idx)), np.asarray(table)[idx]
-    )
 
 
 # ---------------------------------------------------------- fast-path parity

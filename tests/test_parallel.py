@@ -1,6 +1,6 @@
 """parallel/ layer: mesh + shard_map rollout on the 8-device CPU mesh.
 
-SURVEY.md §4 item 5: the same shard_map code paths as a TPU pod slice,
+SURVEY.md §4 item 5: the same shard_map code paths as a multi-GPU host,
 validated by shard-invariance (N-device result == 1-device result).
 """
 

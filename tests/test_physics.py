@@ -1,4 +1,4 @@
-"""Oracle tests: the TPU-native ant engine vs the installed MuJoCo.
+"""Oracle tests: the JAX ant engine vs the installed MuJoCo.
 
 Every layer of :mod:`gym_po_tpu.physics` is compared head-to-head against
 MuJoCo compiling the same generated MJCF (the reference's physics substrate,

@@ -275,12 +275,10 @@ def test_euler_integrator_stable_and_consistent(oracle):
 
 
 # The chord (frozen-Hessian) solver phase and its fixed-point test were
-# REMOVED in r4: hardware measurement showed every chord mix strictly
-# slower than pure full Newton (8 full = 64.1k env-steps/s at euler/B=4096
-# vs 4+8 chord = 31.3k, 2+6 = 40.9k, 4+4 = 37.7k) — the frozen factor's
-# 105 [B]-arrays stay live across a second loop and the exact line search,
-# the dominant per-iteration cost, is kept.  See BASELINE.md and
-# docs/ARCHITECTURE.md negative results.
+# REMOVED: every chord mix measured strictly slower than pure full Newton
+# on the previous accelerator — the frozen factor's 105 [B]-arrays stay
+# live across a second loop and the exact line search, the dominant
+# per-iteration cost, is kept.  See docs/ARCHITECTURE.md negative results.
 
 
 def _random_states(n, seed=0):
@@ -299,7 +297,7 @@ def _random_states(n, seed=0):
 def test_array_pipeline_matches_scalar(walls):
     """The compile-friendly array pipeline (constraint_rows_array +
     smooth_forward_array, used by engine.forward(pipeline="array") for the
-    multichip dryrun) is numerically the SAME model as the scalar TPU perf
+    multichip dryrun) is numerically the SAME model as the scalar perf
     path: identical candidate set/order and row values to fp roundoff, and
     identical smooth dynamics."""
     mdl = am.make_ant_model(

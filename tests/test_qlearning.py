@@ -19,9 +19,9 @@ def test_q_learning_rejects_continuous():
 def test_q_learning_learns_taxi():
     """Greedy-from-Q must complete far more dropoffs than random.
 
-    (On TPU at B=4096 with an epsilon schedule this reaches the optimal
-    policy: +0.0285 reward/step, 19.1 dropoffs/env/256 steps, zero bad
-    moves; the CI-sized run just checks strong learning.)
+    (At B=4096 with an epsilon schedule this reaches the optimal policy,
+    ``examples/solve_taxi.py``; the CI-sized run just checks strong
+    learning.)
     """
     env = gpt.make("Taxi-v4")
     key = jax.random.PRNGKey(0)
